@@ -8,8 +8,8 @@ The round-trip story for checkpoints that live OUTSIDE this framework:
   2. re-imported and quantized to exact NF4 (what a bitsandbytes/QLoRA
      checkpoint arrives as),
   3. transcoded to nf4a at load time (utils.transcode_params: a pure
-     16-entry code remap, scales untouched) so it serves at arithmetic-
-     codebook speed instead of the table-lookup VPU floor,
+     16-entry code remap, scales untouched) so it dequantizes with
+     multiply-adds instead of a per-element select tree,
   4. served with the continuous-batching Engine, and
   5. exported back to HF layout as dense merged weights.
 

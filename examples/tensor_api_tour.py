@@ -73,7 +73,7 @@ def main():
           f"back-to-8 MAE {mae(codecs.dequantize(up), x):.5f}")
 
     print("\n== Hardware-target presets (requantize an existing tensor) ==")
-    for hw in ("tpu", "cpu", "mobile", "edge"):
+    for hw in ("gpu", "cpu", "mobile", "edge"):
         qt = convert.optimize_for_target_hardware(qt8, hw)
         print(f"  {hw:7s} -> {qt.bits}-bit {qt.codebook or qt.scheme}")
 

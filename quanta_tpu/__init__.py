@@ -1,4 +1,4 @@
-"""quanta_tpu — a TPU-native quantized-inference and QLoRA framework.
+"""quanta_tpu — a quantized-inference and QLoRA framework in JAX.
 
 Brand-new JAX/XLA/Pallas implementation of the capability set of the
 reference project ved1beta/Quanta (a PyTorch bitsandbytes-style library):
@@ -9,7 +9,7 @@ and GSPMD-sharded multi-host serving with a paged KV cache.
 
 Layers (bottom-up):
   core      pure-jnp quant math (oracle)        <- reference functional/
-  ops       Pallas kernels + dispatch           <- reference backends/
+  ops       Pallas kernel + dispatch policy     <- reference backends/
   state     config + quant-state registry       <- reference functional/state.py
   utils     packing, serialization, conversion  <- reference utils/
   nn        quantized module layer              <- reference nn/

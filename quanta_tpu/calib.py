@@ -11,7 +11,7 @@ hooks exist but `calibrate()` crashes on an undefined method,
   - activation fake-quant applied at layer inputs when the config says
     ``weights_only=False`` (`functional/model.py:196-246`).
 
-TPU-native mechanism: PyTorch forward-hooks don't exist in functional JAX,
+Mechanism: PyTorch forward-hooks don't exist in functional JAX,
 so stats collection is a *pytree transform* + *traced outputs* instead:
 
   1. ``add_taps(params)`` wraps each 2-D weight leaf in a ``TapWeight``

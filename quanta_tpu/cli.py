@@ -85,6 +85,7 @@ def load_model(args):
     from quanta_tpu.models import llama
 
     v, d, l, h, kv, hid, s = TOY_PRESETS[args.toy]
+    l = getattr(args, "layers", None) or l
     cfg = llama.LlamaConfig(
         vocab_size=v, dim=d, n_layers=l, n_heads=h, n_kv_heads=kv,
         hidden_dim=hid, max_seq_len=s, dtype=dtype or jnp.bfloat16,
@@ -109,6 +110,9 @@ def _add_model_args(p, ckpt=True):
         p.add_argument("--ckpt", help="quanta_tpu .npz checkpoint (from `quantize`)")
     p.add_argument("--toy", choices=sorted(TOY_PRESETS), default="tiny",
                    help="random-init preset when no --model/--ckpt")
+    p.add_argument("--layers", type=int, default=None,
+                   help="layer count of the --toy preset (cut depth; "
+                        "widths stay the preset's)")
     p.add_argument("--dtype", default=None, help="compute dtype (bfloat16/float32)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--cpu", action="store_true", help="force the CPU backend")
@@ -157,7 +161,7 @@ def cmd_quantize(args):
     if args.config:
         with open(args.config) as f:
             tree = ConfigTree.from_json(f.read())
-    else:
+    elif args.fmt != "bf16":
         tree = ConfigTree(default=QuantConfig.from_mode(args.fmt,
                                                         block_size=args.block_size))
     calib_kw = {}
@@ -175,7 +179,11 @@ def cmd_quantize(args):
         )
         log(f"calibrating on {n} x {seq}-token batches from {args.calib_text}")
 
-    qparams = ptq.quantize_model(params, tree, **calib_kw)
+    if args.fmt == "bf16":  # dense checkpoint: the baseline format
+        qparams = jax.tree_util.tree_map(
+            lambda a: a.astype(jax.numpy.bfloat16), params)
+    else:
+        qparams = ptq.quantize_model(params, tree, **calib_kw)
     serialization.save_checkpoint(qparams, args.out)
     with open(args.out + ".config.json", "w") as f:
         json.dump(_cfg_to_json(cfg, arch), f, indent=1)
@@ -255,6 +263,12 @@ def cmd_serve(args):
         "throughput_tok_s": round(n_tok / max(eng._t_serve, 1e-9), 1),
     }
     print(json.dumps(stats))
+    if args.out:
+        with open(args.out, "w") as f:
+            for r in done:
+                f.write(json.dumps({"uid": r.uid, "prompt": r.prompt.tolist(),
+                                    "output": [int(t) for t in r.output]})
+                        + "\n")
     if args.show:
         for r in done[: args.show]:
             log(f"[{r.uid}] {tok.decode(r.output)!r}")
@@ -289,14 +303,17 @@ def cmd_finetune(args):
     opt_state = tx.init(adapters)
     step = jax.jit(train.make_qlora_train_step(cfg, tx))
     rng = np.random.default_rng(args.seed)
+    losses = []
     for i in range(args.steps):
         b = jnp.asarray(wins[rng.integers(0, n_win, size=args.batch)])
         batch = {"inputs": b[:, :-1], "targets": b[:, 1:]}
         adapters, opt_state, loss = step(adapters, opt_state, params, batch)
+        losses.append(float(loss))
         if i % max(1, args.steps // 10) == 0 or i == args.steps - 1:
-            log(f"step {i:4d}  loss {float(loss):.4f}")
+            log(f"step {i:4d}  loss {losses[-1]:.4f}")
     serialization.save_checkpoint(adapters, args.out)
     log(f"saved LoRA adapters -> {args.out}")
+    print(json.dumps({"steps": args.steps, "losses": losses}))
 
 
 def cmd_bench(args):
@@ -340,7 +357,7 @@ def cmd_convert(args):
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="quanta_tpu",
-        description="TPU-native quantized inference / QLoRA framework",
+        description="quantized inference / QLoRA framework",
     )
     sub = ap.add_subparsers(dest="cmd", required=True)
 
@@ -348,7 +365,9 @@ def build_parser() -> argparse.ArgumentParser:
     _add_model_args(q, ckpt=False)
     q.add_argument("--fmt", default="nf4a",
                    choices=["int8", "int4", "nf4", "nf4a", "nf8", "fp4",
-                            "fp8", "llm_int8", "int4c", "int8a", "int4a"])
+                            "fp8", "llm_int8", "int4c", "int8a", "int4a",
+                            "bf16"],
+                   help="weight format (bf16: dense checkpoint)")
     q.add_argument("--block-size", type=int, default=64)
     q.add_argument("--config", help="ConfigTree JSON (three-tier rules)")
     q.add_argument("--calib-text", help="text file for activation calibration")
@@ -383,6 +402,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="int8 per-(token,head) quantized KV pool")
     s.add_argument("--max-new-tokens", type=int, default=32)
     s.add_argument("--show", type=int, default=0, help="print first N outputs")
+    s.add_argument("--out", help="write each request's prompt and output "
+                                 "tokens here as JSON lines")
     s.set_defaults(fn=cmd_serve)
 
     f = sub.add_parser("finetune", help="QLoRA fine-tune on a text file")
@@ -422,7 +443,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
+    from quanta_tpu import compile_cache
+
     args = build_parser().parse_args(argv)
+    compile_cache.enable()
     args.fn(args)
 
 

@@ -18,11 +18,10 @@ Codebook values mirror the reference's formats:
   - INT4/INT8 "dynamic": signed uniform grids, provided as codebooks so the
     same kernel path serves every format.
 
-TPU-native addition — **polynomial codebooks**. Table lookup is the VPU
-bottleneck of fused dequant-matmul on TPU (a 16-level select tree costs
-~23 VPU ops per weight element; the MXU sits idle waiting). A codebook
-whose levels are *defined* as a low-degree polynomial evaluated at the
-code dequantizes in deg() fused multiply-adds instead:
+Polynomial codebooks. A 16-level table lookup costs a select tree per
+weight element (4 bit masks + 15 selects) inside a fused dequant-matmul.
+A codebook whose levels are *defined* as a low-degree polynomial
+evaluated at the code dequantizes in deg() fused multiply-adds instead:
 
   - "nf4a" (arithmetic NormalFloat-4): levels are a cubic whose
     coefficients were optimized for mean-squared reconstruction error of
@@ -164,6 +163,53 @@ def get_poly_coeffs(name: str):
     """Horner coefficients (highest first) if ``name`` is a polynomial
     codebook, else None. Kernels use these for arithmetic dequant."""
     return POLY_COEFFS.get(name)
+
+
+def _lut_tree(codes, levels: np.ndarray):
+    """16-entry lookup as a binary select tree: 4 bit masks + 15 selects."""
+    b0 = (codes & 1) != 0
+    b1 = (codes & 2) != 0
+    b2 = (codes & 4) != 0
+    b3 = (codes & 8) != 0
+    lv = [float(v) for v in levels]
+    t = [jnp.where(b0, lv[2 * j + 1], lv[2 * j]) for j in range(8)]
+    u = [jnp.where(b1, t[2 * j + 1], t[2 * j]) for j in range(4)]
+    v = [jnp.where(b2, u[2 * j + 1], u[2 * j]) for j in range(2)]
+    return jnp.where(b3, v[1], v[0])
+
+
+def has_arithmetic_dequant(codebook) -> bool:
+    """True when :func:`dequant_codes` needs no table gather for this
+    codebook (None is symmetric int8: the codes are the values)."""
+    return codebook is None or codebook == "nf8" or (
+        codebook in POLY_COEFFS or len(_REGISTRY[codebook]) == 16)
+
+
+def dequant_codes(codes_i32, codebook):
+    """Integer codes -> normalized f32 values: the one dequant rule shared
+    by the fused matmul kernel and the plain XLA path.
+
+    Polynomial codebooks run Horner (1 madd per degree), nf8 its defining
+    tanh formula, other 16-level tables a select tree; only the 256-level
+    tables (fp8) gather, which keeps them off the kernel
+    (:func:`has_arithmetic_dequant`)."""
+    if codebook is None:  # symmetric int8 / affine: codes ARE the values
+        return codes_i32.astype(jnp.float32)
+    coeffs = get_poly_coeffs(codebook)
+    if coeffs is not None:
+        cf = codes_i32.astype(jnp.float32)
+        out = jnp.full(cf.shape, np.float32(coeffs[0]), jnp.float32)
+        for a in coeffs[1:]:
+            out = out * cf + np.float32(a)
+        return out
+    if codebook == "nf8":  # tanh(2*(2c/255 - 1)) / tanh(2)
+        cf = codes_i32.astype(jnp.float32)
+        return jnp.tanh((cf * np.float32(2.0 / 255.0) - 1.0) * 2.0) * np.float32(
+            1.0 / np.tanh(2.0))
+    levels = _REGISTRY[codebook]
+    if len(levels) == 16:
+        return _lut_tree(codes_i32, levels)
+    return jnp.asarray(levels)[codes_i32]
 
 
 # NOTE: these return fresh jnp constants per call (the numpy master copy is

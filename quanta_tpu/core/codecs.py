@@ -269,8 +269,8 @@ def quantize_matmul_weight(
 
 def _dequant_matmul_layout(qt: QuantizedTensor, codes: jax.Array) -> jax.Array:
     k, n = qt.shape
-    lv = codebooks.get_codebook(qt.codebook)
-    vals = lv[codes.astype(jnp.int32)]  # (K_pad, N_pad) normalized
+    # (K_pad, N_pad) normalized; the same rule the fused kernel applies
+    vals = codebooks.dequant_codes(codes.astype(jnp.int32), qt.codebook)
     scale = jnp.repeat(qt.scale, qt.block_size, axis=0)
     return (vals * scale)[:k, :n].astype(qt.dtype)
 
@@ -288,9 +288,4 @@ def dequantize_matmul_weight(qt: QuantizedTensor) -> jax.Array:
     if qt.packed == "split_k":
         codes = packing.unpack_split_k(qt.codes)
         return _dequant_matmul_layout(qt, codes)
-    scale = jnp.repeat(qt.scale, qt.block_size, axis=0)
-    if qt.scheme == "symmetric":  # int8
-        return (qt.codes.astype(jnp.float32) * scale)[:k, :n].astype(qt.dtype)
-    lv = codebooks.get_codebook(qt.codebook)
-    vals = lv[qt.codes.astype(jnp.int32)] * scale
-    return vals[:k, :n].astype(qt.dtype)
+    return _dequant_matmul_layout(qt, qt.codes)

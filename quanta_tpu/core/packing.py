@@ -10,7 +10,7 @@ Two layouts:
 
   - ``"split_k"`` (matmul layout): for a 2-D weight ``(K, N)``, rows ``k``
     and ``k + K/2`` share a byte: ``packed[k, n] = codes[k, n] |
-    codes[k + K/2, n] << 4``. This is the TPU-friendly layout: the fused
+    codes[k + K/2, n] << 4``. The fused
     dequant-matmul kernel computes ``x[:, :K/2] @ deq(lo) + x[:, K/2:] @
     deq(hi)`` with *contiguous* activation slices — no lane shuffles, no
     interleave on the critical path.

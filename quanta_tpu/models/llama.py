@@ -3,7 +3,7 @@
 No analogue exists in the reference (its only model is a demo ConvNet,
 /root/reference/example/model_quantization_example.py:10-29); this model
 realizes the north-star serving configs (TinyLlama-1.1B / Llama-2-7B/13B,
-BASELINE.json). Design is TPU-first:
+BASELINE.json). Design:
 
   - params are a plain pytree; each projection goes through
     quanta_tpu.nn.linear, so quantization is a tree transform and any leaf
@@ -27,7 +27,9 @@ from typing import Any, Optional
 import jax
 import jax.numpy as jnp
 
+from quanta_tpu import ops
 from quanta_tpu.nn.linear import linear
+from quanta_tpu.ops.attention import causal_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,8 +175,8 @@ def forward(
     cfg: LlamaConfig,
     cache: Optional[dict] = None,
     *,
+    cache_empty: bool = False,
     use_kernel=None,
-    use_flash: Optional[bool] = None,
     interpret: bool = False,
 ):
     """Run the decoder.
@@ -182,23 +184,22 @@ def forward(
     tokens: (B, S) int32. Without a cache: plain causal forward (training /
     scoring). With a cache: tokens are appended at ``cache['pos']`` and an
     updated cache is returned (prefill when S>1, decode when S==1).
+    ``cache_empty`` (static) promises that every row's ``cache['pos']`` is
+    0, as after init_cache.
 
-    use_flash routes multi-token attention through the fused Pallas
-    flash-attention kernel (ops/attention.py) — scores never materialize
-    in HBM, which is what makes long-context prefill scale. Default
-    (None): the kernel on TPU when S >= 1024, where it measures 1.3-1.5x
-    faster than the XLA attention path end-to-end (below that XLA's
-    materialized-score attention is already compute-bound and slightly
-    ahead); the XLA path (the oracle) elsewhere and for single-token
-    decode.
+    A prefill from position 0 (no cache, an empty one, or one exactly S
+    long, which can only start at 0) attends over its own S keys, not
+    the cache's capacity. Attention takes the route ops.attention_impl
+    picks: cuDNN's fused attention for such sequences when long and bf16,
+    the plain _attention everywhere else.
 
     Returns (logits (B, S, V), new_cache | None).
     """
     b, s = tokens.shape
     lin = partial(linear, use_kernel=use_kernel, interpret=interpret)
-    if use_flash is None:
-        use_flash = s >= 1024 and jax.default_backend() == "tpu"
-    use_flash = use_flash and s > 1
+    from_zero = s > 1 and (cache is None or cache_empty
+                           or cache["k"].shape[2] == s)
+    impl = ops.attention_impl(s, cfg.dtype, from_zero)
     h = jnp.take(params["tok_emb"], tokens, axis=0).astype(cfg.dtype)
 
     if cache is not None:
@@ -209,7 +210,6 @@ def forward(
         t = cache["k"].shape[2]
         kv_positions = jax.lax.broadcasted_iota(jnp.int32, (b, t), 1)
         kv_len_mask = kv_positions < (start[:, None] + s)
-        q_start, kv_len = start, start + s
         # carry the stacked cache arrays and update layer slices in place
         # (.at[i].set on a carried buffer; a per-layer list + jnp.stack
         # would copy the whole cache every step)
@@ -217,15 +217,13 @@ def forward(
     else:
         q_positions = jax.lax.broadcasted_iota(jnp.int32, (b, s), 1)
         kv_len_mask = jnp.ones((b, s), bool)
-        q_start = jnp.zeros((b,), jnp.int32)
-        kv_len = jnp.full((b,), s, jnp.int32)
+
+    if from_zero:
+        kv_len_mask = jnp.ones((b, s), bool)
 
     def attend(q, k_all, v_all):
-        if use_flash:
-            from quanta_tpu.ops.attention import flash_attention
-
-            return flash_attention(q, k_all, v_all, q_start, kv_len,
-                                   interpret=interpret)
+        if impl is not None:
+            return causal_attention(q, k_all, v_all, implementation=impl)
         return _attention(q, k_all, v_all, q_positions, kv_len_mask, cfg)
 
     for i, lp in enumerate(params["layers"]):
@@ -250,7 +248,7 @@ def forward(
             v_all = upd(v_cache[i], v)
             k_cache = k_cache.at[i].set(k_all)
             v_cache = v_cache.at[i].set(v_all)
-            attn = attend(q, k_all, v_all)
+            attn = attend(q, k, v) if from_zero else attend(q, k_all, v_all)
         else:
             attn = attend(q, k, v)
 
@@ -287,7 +285,7 @@ def greedy_decode(
     cache = init_cache(cfg, b, max_len=s + max_new_tokens)
 
     fwd = partial(forward, cfg=cfg, use_kernel=use_kernel, interpret=interpret)
-    logits, cache = fwd(params, prompt, cache=cache)
+    logits, cache = fwd(params, prompt, cache=cache, cache_empty=True)
     next_tok = jnp.argmax(logits[:, -1, :], axis=-1).astype(jnp.int32)
 
     def step(carry, _):

@@ -1,8 +1,6 @@
 """Quantized module layer (reference parity: Quanta/nn/__init__.py:5)."""
 
 from quanta_tpu.nn.linear import (
-    Linear4bit,
-    Linear8bitLt,
     dequantize_params,
     init_quantized_params,
     linear,
@@ -31,3 +29,13 @@ __all__ = [
     "lora_params_filter",
     "merge_lora",
 ]
+
+
+def __getattr__(name):
+    # the flax modules load on first use: flax is optional for the
+    # functional API that models, serving and training run on
+    if name in ("Linear8bitLt", "Linear4bit"):
+        from quanta_tpu.nn import linen
+
+        return getattr(linen, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

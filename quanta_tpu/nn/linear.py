@@ -11,20 +11,22 @@ forward in fp, /root/reference/Quanta/nn/linear.py:10-83):
 Here the *functional* entry point is :func:`linear`, which dispatches on
 the weight leaf type (plain array / QuantizedTensor / Int8Weight), so
 whole-model quantization is a pytree transformation, not module surgery.
-The Flax linen modules below wrap it for users who want the module API.
+The Flax linen modules in quanta_tpu.nn.linen wrap it for users who want
+the module API (imported on first use, so flax stays optional).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Optional
 
-import flax.linen as fnn
 import jax
 import jax.numpy as jnp
 
 from quanta_tpu import calib
 from quanta_tpu.core import codecs
 from quanta_tpu.core.qtensor import QuantizedTensor
+from quanta_tpu import ops
 from quanta_tpu.ops.int4c import Int4cWeight, matmul_int4c, quantize_int4c_weight
 from quanta_tpu.ops.int8mm import Int8Weight, matmul_int8, quantize_int8_weight
 from quanta_tpu.ops.matmul import matmul_quantized
@@ -42,17 +44,13 @@ def linear(
 ) -> jax.Array:
     """``x @ W (+ b)`` for any supported weight representation.
 
-    ``W`` is (in_features, out_features). With ``use_kernel=False`` the
-    quantized weight is dequantized via the XLA reference path instead of
-    the fused Pallas kernel (CPU fallback / debugging — the role of the
-    reference's backends/cpu, SURVEY.md §2.4). Default (None): kernels on
-    TPU, XLA path elsewhere — the dispatcher role of the reference's
-    backends/__init__.py:28-40.
+    ``W`` is (in_features, out_features). For a QuantizedTensor,
+    ``use_kernel`` picks the fused dequant-matmul kernel (True) or the
+    plain dequant + matmul (False); None asks ops.use_fused_matmul, the
+    dispatch policy (the role of the reference's backends/__init__.py:
+    28-40). ``interpret=True`` runs the kernel in Pallas interpret mode
+    (tests on the CPU). Int8Weight and Int4cWeight have one (XLA) path.
     """
-    if use_kernel is None:
-        import jax as _jax
-
-        use_kernel = interpret or _jax.default_backend() == "tpu"
     if isinstance(w, calib.TapWeight):  # calibration stats hook
         calib.tap_record(w.name, x)
         w = w.w
@@ -60,14 +58,15 @@ def linear(
         x = calib.fake_quant(x, w.lo, w.hi, w.bits)
         w = w.w
     if isinstance(w, QuantizedTensor):
-        if use_kernel:
-            y = matmul_quantized(x, w, interpret=interpret)
-        else:
-            y = x @ codecs.dequantize_matmul_weight(w).astype(x.dtype)
+        if use_kernel is None:
+            m = math.prod(x.shape[:-1])
+            use_kernel = ops.kernel_supports(w) and (
+                interpret or ops.use_fused_matmul(m, w))
+        y = matmul_quantized(x, w, kernel=use_kernel, interpret=interpret)
     elif isinstance(w, Int8Weight):
-        y = matmul_int8(x, w, use_kernel=use_kernel, interpret=interpret)
+        y = matmul_int8(x, w)
     elif isinstance(w, Int4cWeight):
-        y = matmul_int4c(x, w, use_kernel=use_kernel, interpret=interpret)
+        y = matmul_int4c(x, w)
     elif type(w).__name__ == "LoRAWeight":  # avoid circular import
         from quanta_tpu.nn.lora import lora_linear
 
@@ -93,9 +92,8 @@ def quantize_linear_weight(
     formats), "int8a"/"int4a" (affine zero-point blockwise — the
     reference's default 8-bit scheme; served via the symmetric kernel
     plus a blocksum(x) @ zp correction GEMM), "llm_int8"
-    (outlier-decomposition Int8Weight), or "int4c" (4-bit weights on
-    the int8 MXU, per-column scales — the fastest 4-bit serving format;
-    ops/int4c.py).
+    (outlier-decomposition Int8Weight), or "int4c" (4-bit weights with
+    per-column scales and int8 activations; ops/int4c.py).
     """
     if mode == "llm_int8":
         return quantize_int8_weight(
@@ -104,71 +102,6 @@ def quantize_linear_weight(
     if mode == "int4c":
         return quantize_int4c_weight(w)
     return codecs.quantize_matmul_weight(w, fmt=mode, block_size=block_size)
-
-
-# ------------------------------------------------------------ linen modules
-
-
-class Linear8bitLt(fnn.Module):
-    """LLM.int8() linear (reference: Quanta/nn/linear.py:10-45).
-
-    At init the kernel is a dense bf16/f32 array (``has_fp16_weights``
-    semantics); call :func:`quanta_tpu.nn.quantize_params` on the param
-    tree to swap kernels for Int8Weight leaves. ``__call__`` handles both.
-    """
-
-    features: int
-    use_bias: bool = True
-    has_fp16_weights: bool = False
-    threshold: float = 6.0
-    param_dtype: Any = jnp.float32
-
-    @fnn.compact
-    def __call__(self, x):
-        in_features = x.shape[-1]
-        kernel = self.param(
-            "kernel",
-            fnn.initializers.kaiming_uniform(),
-            (in_features, self.features),
-            self.param_dtype,
-        )
-        bias = (
-            self.param(
-                "bias", fnn.initializers.zeros_init(), (self.features,), self.param_dtype
-            )
-            if self.use_bias
-            else None
-        )
-        return linear(x, kernel, bias)
-
-
-class Linear4bit(fnn.Module):
-    """QLoRA-style 4-bit linear (reference: Quanta/nn/linear.py:48-83)."""
-
-    features: int
-    use_bias: bool = True
-    compute_dtype: Any = jnp.bfloat16
-    quant_type: str = "nf4"
-    block_size: int = 64
-    param_dtype: Any = jnp.float32
-
-    @fnn.compact
-    def __call__(self, x):
-        in_features = x.shape[-1]
-        kernel = self.param(
-            "kernel",
-            fnn.initializers.kaiming_uniform(),
-            (in_features, self.features),
-            self.param_dtype,
-        )
-        bias = (
-            self.param(
-                "bias", fnn.initializers.zeros_init(), (self.features,), self.param_dtype
-            )
-            if self.use_bias
-            else None
-        )
-        return linear(x.astype(self.compute_dtype), kernel, bias)
 
 
 def quantize_params(
@@ -242,11 +175,10 @@ def init_quantized_params(rng, cfg, *, mode: str = "nf4a",
     """Random-init a Llama param tree DIRECTLY in quantized form — codes
     and scales are drawn without ever materializing the dense bf16 tree.
 
-    Why: benchmarking north-star model sizes on one chip. A dense
-    Llama-2-7B init is ~13.5 GB bf16 and cannot coexist with its own
-    quantized copy in 16 GB of HBM; random codes + calibrated-looking
-    scales measure identical throughput (decode cost depends on shapes
-    and formats, not weight values).
+    Why: benchmarking and compiling north-star model sizes without the
+    dense tree (a dense Llama-2-7B init is ~13.5 GB bf16); random codes +
+    calibrated-looking scales measure identical throughput (decode cost
+    depends on shapes and formats, not weight values).
     """
     import dataclasses as _dc
     import math as _math
@@ -257,7 +189,7 @@ def init_quantized_params(rng, cfg, *, mode: str = "nf4a",
         k, n = shape
         # template carries the format's static metadata; codes/scales are
         # drawn at the real (padded) layout the quantizer would produce
-        # (K_pad % 16*block == 0, N_pad % 128 == 0; see ops/matmul.py)
+        # (K_pad % 16*block == 0, N_pad % 128 == 0; see core/codecs.py)
         template = codecs.quantize_matmul_weight(
             jnp.zeros((16 * block_size, 128), jnp.float32),
             fmt=mode, block_size=block_size,

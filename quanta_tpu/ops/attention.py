@@ -1,575 +1,37 @@
-"""Fused (flash) attention Pallas kernels — forward AND backward.
+"""Causal attention through ``jax.nn.dot_product_attention``.
 
-VERDICT r3 missing #1: the serving path's attention ran entirely in XLA,
-materializing the full (B, g, rep, S, T) f32 score tensor
-(models/llama.py:158-166). At the committed prefill buckets (<=256) that
-tensor is small; at long context it is the memory wall (S=T=2048, B=8,
-32 heads: 2 GiB of scores in f32). This kernel computes
-softmax(q k^T / sqrt(d)) v with the online-softmax recurrence — scores
-never leave VMEM, HBM traffic is O(S*T/TK) reads of K/V tiles instead of
-O(S*T) score writes+reads.
-
-VERDICT r4 missing #2: the forward kernel had no VJP, so `jax.grad`
-through it raised — and llama.forward auto-enables it for S >= 1024 on
-TPU, which silently broke long-sequence QLoRA. This file now defines the
-standard recompute flash backward as two more Pallas kernels wired
-through `jax.custom_vjp`:
-
-  - the forward (when taken under differentiation) additionally emits
-    the per-row softmax statistics L = m + log(l) (logsumexp), stored
-    8-lanes-wide so the (rows, 1) accumulator reshapes to the output
-    block without a lane/sublane relayout;
-  - backward precomputes D = rowsum(dO * O) in XLA (one cheap fused
-    elementwise+reduce), then
-  - a dQ kernel (grid = forward's, KV innermost) recomputes the score
-    tile, p = exp(s - L), ds = p * (dO V^T - D) * scale, and
-    accumulates dQ += ds K;
-  - a dKV kernel (grid transposed: Q innermost) accumulates
-    dV += p^T dO and dK += ds^T Q per KV tile.
-  Scores again never touch HBM; each backward kernel streams K/V (resp.
-  Q/dO) tiles exactly once per query (resp. KV) block-row.
-
-Design (TPU-first):
-  - grid (B, n_kv_heads, Sq/TQ, T/TK), KV axis innermost and
-    'arbitrary'; running max / sum / output accumulator live in VMEM
-    scratch across the KV steps of one (b, g, qb) cell.
-  - GQA folded into the tile: one grid cell processes ALL ``rep`` query
-    heads of a KV group together — the q tile is (rep, TQ, hd) flattened
-    to (rep*TQ, hd), so each K/V tile is read ONCE per group (not once
-    per query head) and the MXU sees (rep*TQ, hd) x (hd, TK) dots
-    instead of rep thin ones. No jnp.repeat materialization anywhere.
-  - causal + length masking from two (B,) scalars: q_start (absolute
-    position of the first query row, so cached prefill-at-offset works)
-    and kv_len (valid KV prefix). Fully-masked KV tiles are skipped with
-    @pl.when.
-  - default tiles tq=128, tk=1024 from a measured sweep (B=8, S=2048,
-    TinyLlama geometry: 18.3 -> 10.2 ms, 1.8x faster than the XLA
-    attention path at the same shape — bigger KV tiles amortize the
-    online-softmax recurrence).
-  - f32 accumulation; bf16 in/out supported. For f32 inputs the dots run
-    at Precision.HIGHEST — measured 2e-6 abs error vs a float64 oracle,
-    where the XLA attention path's default bf16 MXU passes sit at ~1e-2.
-
-Oracle: quanta_tpu.models.llama._attention (tests/test_attention.py
-asserts forward parity in interpret mode on CPU and compiled on TPU, and
-backward parity vs `jax.grad` of the oracle).
+The route for multi-token causal attention whose queries start at
+position 0 (training, scoring, prefill into an empty cache): on the GPU
+``implementation="cudnn"`` runs cuDNN's fused attention, which keeps the
+(S, T) scores out of device memory, supports grouped KV heads and has
+its own backward. ops.attention_impl decides when it is taken; every
+other case (decode, prefill at an offset, f32) runs the plain
+quanta_tpu.models.llama._attention, which is also this route's oracle.
 """
 
 from __future__ import annotations
 
-import functools
-import math
+from typing import Optional
 
 import jax
-import jax.numpy as jnp
-import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-_NEG = -1e30
-# lse sentinel for rows with zero live KV: exp(s - _BIG) == 0 for any
-# representable s, so backward p is exactly 0 on dead rows
-_BIG = 1e30
-# lse/delta are (rows, 1) logically; stored 8 lanes wide so the block
-# reshape (rep*tq, 8) <-> (rep, tq, 8) is a free leading-dim split
-_STAT_LANES = 8
 
 
-def _round8(x: int) -> int:
-    return -(-x // 8) * 8
-
-
-def _mxu_precision(dtype) -> jax.lax.Precision:
-    # f32 inputs: force true-f32 MXU passes (the XLA attention path's
-    # default bf16 passes cost ~1e-2 abs error vs f64 — this kernel
-    # measures 2e-6). bf16 inputs: Mosaic rejects fp32 contract
-    # precision, and bf16 operands have nothing to gain from it
-    # (accumulation is f32 either way).
-    return (jax.lax.Precision.HIGHEST if dtype == jnp.float32
-            else jax.lax.Precision.DEFAULT)
-
-
-def _flash_kernel(
-    qstart_ref, kvlen_ref, q_ref, k_ref, v_ref, out_ref, *rest,
-    rep, tq, tk, scale, causal, precision, save_stats,
-):
-    if save_stats:
-        lse_ref, m_ref, l_ref, acc_ref = rest
-    else:
-        m_ref, l_ref, acc_ref = rest
-    b = pl.program_id(0)
-    qb = pl.program_id(2)
-    kb = pl.program_id(3)
-
-    @pl.when(kb == 0)
-    def _():
-        m_ref[:] = jnp.full_like(m_ref, _NEG)
-        l_ref[:] = jnp.zeros_like(l_ref)
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-
-    q_start = qstart_ref[b, 0]
-    kv_len = kvlen_ref[b, 0]
-    rows = rep * tq
-    # row r of the flattened q tile is query position qb*tq + (r % tq)
-    # of head g*rep + r // tq. Positions stay as a (rows, 1) column and a
-    # (1, tk) row that broadcast in the comparisons — materializing two
-    # full (rows, tk) i32 planes costs 8 MB of VMEM stack at the default
-    # tiles and blew the 16 MB scoped limit in the backward kernels.
-    row_pos = q_start + qb * tq + (
-        jax.lax.broadcasted_iota(jnp.int32, (rows, 1), 0) % tq
-    )
-    kv_pos = kb * tk + jax.lax.broadcasted_iota(jnp.int32, (1, tk), 1)
-
-    # whole tile dead? (every kv position beyond every query's horizon
-    # or beyond the valid prefix) -> skip the matmuls
-    first_q = q_start + qb * tq
-    tile_live = (kb * tk < kv_len) & (
-        (not causal) or (kb * tk <= first_q + tq - 1)
-    )
-
-    @pl.when(tile_live)
-    def _():
-        q = q_ref[0, 0].reshape(rows, q_ref.shape[-1])  # (rep*tq, hd)
-        k = k_ref[0, 0]  # (tk, hd)
-        v = v_ref[0, 0]
-        s = jax.lax.dot_general(
-            q, k, (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=precision,
-        ) * scale  # (rep*tq, tk)
-        mask = kv_pos < kv_len
-        if causal:
-            mask &= kv_pos <= row_pos
-        s = jnp.where(mask, s, _NEG)
-
-        m_prev = m_ref[:]  # (rows, 1)
-        m_new = jnp.maximum(m_prev, jnp.max(s, axis=1, keepdims=True))
-        alpha = jnp.exp(m_prev - m_new)
-        p = jnp.exp(s - m_new)  # (rows, tk)
-        l_ref[:] = l_ref[:] * alpha + jnp.sum(p, axis=1, keepdims=True)
-        acc_ref[:] = acc_ref[:] * alpha + jax.lax.dot_general(
-            p.astype(v.dtype), v, (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=precision,
-        )
-        m_ref[:] = m_new
-
-    @pl.when(kb == pl.num_programs(3) - 1)
-    def _():
-        # rows with no live kv (fully masked) produce l == 0; emit zeros
-        l = l_ref[:]
-        out = jnp.where(l > 0, acc_ref[:] / jnp.maximum(l, 1e-30), 0.0)
-        out_ref[0, 0] = out.reshape(out_ref.shape[2:]).astype(out_ref.dtype)
-        if save_stats:
-            lse = jnp.where(
-                l > 0, m_ref[:] + jnp.log(jnp.maximum(l, 1e-30)), _BIG
-            )  # (rows, 1)
-            lse_ref[0, 0] = jnp.broadcast_to(
-                lse, (rows, _STAT_LANES)
-            ).reshape(rep, tq, _STAT_LANES)
-
-
-def _clamp_tiles(tq, tk, sq, t):
-    # clamp tiles to the problem size, rounded UP to the 8-row sublane
-    # quantum — a non-8-multiple block (e.g. sq=12 forced through the
-    # kernel) would fail Mosaic layout even though interpret mode passes;
-    # sq/t are padded up to the tile anyway
-    return min(tq, _round8(max(8, sq))), min(tk, _round8(max(8, t)))
-
-
-def _transpose_pad(x, nkv, rep, s_pad):
-    """(B, S, nh, hd) -> (B, nkv, rep, S_pad, hd)."""
-    b, s, _, hd = x.shape
-    xt = jnp.moveaxis(x, 2, 1).reshape(b, nkv, rep, s, hd)
-    if s_pad != s:
-        xt = jnp.pad(xt, ((0, 0), (0, 0), (0, 0), (0, s_pad - s), (0, 0)))
-    return xt
-
-
-def _forward_impl(q, k, v, q_start, kv_len, *, causal, tq, tk, interpret,
-                  save_stats):
-    b, sq, nh, hd = q.shape
-    t, nkv = k.shape[1], k.shape[2]
-    assert nh % nkv == 0, (nh, nkv)
-    rep = nh // nkv
-    scale = 1.0 / math.sqrt(hd)
-
-    tq, tk = _clamp_tiles(tq, tk, sq, t)
-    sq_pad = -(-sq // tq) * tq
-    t_pad = -(-t // tk) * tk
-
-    # (B, nkv, rep, Sq, hd): KV group is a leading block axis so one grid
-    # cell covers all rep query heads of the group
-    qt = _transpose_pad(q, nkv, rep, sq_pad)
-    kt = jnp.moveaxis(k, 2, 1)  # (B, nkv, T, hd)
-    vt = jnp.moveaxis(v, 2, 1)
-    if t_pad != t:
-        kt = jnp.pad(kt, ((0, 0), (0, 0), (0, t_pad - t), (0, 0)))
-        vt = jnp.pad(vt, ((0, 0), (0, 0), (0, t_pad - t), (0, 0)))
-    # padded KV tail is masked by kv_len (clamped to t)
-    kv_len = jnp.minimum(kv_len.astype(jnp.int32), t)
-
-    grid = (b, nkv, sq_pad // tq, t_pad // tk)
-    out_shapes = [jax.ShapeDtypeStruct((b, nkv, rep, sq_pad, hd), q.dtype)]
-    out_specs = [pl.BlockSpec(
-        (1, 1, rep, tq, hd), lambda bi, g, qb, kb: (bi, g, 0, qb, 0)
-    )]
-    if save_stats:
-        out_shapes.append(jax.ShapeDtypeStruct(
-            (b, nkv, rep, sq_pad, _STAT_LANES), jnp.float32
-        ))
-        out_specs.append(pl.BlockSpec(
-            (1, 1, rep, tq, _STAT_LANES),
-            lambda bi, g, qb, kb: (bi, g, 0, qb, 0),
-        ))
-    res = pl.pallas_call(
-        functools.partial(
-            _flash_kernel, rep=rep, tq=tq, tk=tk, scale=scale,
-            causal=causal, precision=_mxu_precision(q.dtype),
-            save_stats=save_stats,
-        ),
-        grid=grid,
-        in_specs=[
-            # whole-array SMEM blocks (Mosaic requires sublane-divisible
-            # or full blocks; per-row (1,1) blocks of a (B,1) array fail)
-            pl.BlockSpec((b, 1), lambda bi, g, qb, kb: (0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((b, 1), lambda bi, g, qb, kb: (0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, 1, rep, tq, hd),
-                         lambda bi, g, qb, kb: (bi, g, 0, qb, 0)),
-            pl.BlockSpec((1, 1, tk, hd),
-                         lambda bi, g, qb, kb: (bi, g, kb, 0)),
-            pl.BlockSpec((1, 1, tk, hd),
-                         lambda bi, g, qb, kb: (bi, g, kb, 0)),
-        ],
-        out_specs=out_specs if save_stats else out_specs[0],
-        out_shape=out_shapes if save_stats else out_shapes[0],
-        scratch_shapes=[
-            pltpu.VMEM((rep * tq, 1), jnp.float32),
-            pltpu.VMEM((rep * tq, 1), jnp.float32),
-            pltpu.VMEM((rep * tq, hd), jnp.float32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=(
-                "parallel", "parallel", "parallel", "arbitrary"
-            ),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=4 * b * nh * sq_pad * t_pad * hd,
-            bytes_accessed=(
-                b * nh * sq_pad * hd * 2
-                + b * nkv * t_pad * hd * 2 * 2
-                + b * nh * sq_pad * hd * 2
-            ),
-            transcendentals=b * nh * sq_pad * t_pad,
-        ),
-        interpret=interpret,
-    )(
-        q_start.astype(jnp.int32).reshape(b, 1),
-        kv_len.reshape(b, 1),
-        qt, kt, vt,
-    )
-    out_t, lse = res if save_stats else (res, None)
-    out = out_t.reshape(b, nh, sq_pad, hd)[:, :, :sq]
-    return jnp.moveaxis(out, 1, 2), lse
-
-
-# ------------------------------------------------------------- backward
-
-
-def _recompute_p(q_ref, k_ref, lse_ref, q_start, kv_len, qb, kb,
-                 *, rep, tq, tk, scale, causal, precision):
-    """Shared backward step: rebuild the masked probability tile
-    p = exp(s*scale - L) from the saved logsumexp. ``q_start``/``kv_len``
-    are scalars already read by the caller at kernel top level —
-    pl.program_id must NOT be called inside a pl.when body (interpret
-    mode cannot substitute it there). Returns (p, q, k)."""
-    rows = rep * tq
-    hd = q_ref.shape[-1]
-    row_pos = q_start + qb * tq + (
-        jax.lax.broadcasted_iota(jnp.int32, (rows, 1), 0) % tq
-    )
-    kv_pos = kb * tk + jax.lax.broadcasted_iota(jnp.int32, (1, tk), 1)
-
-    q = q_ref[0, 0].reshape(rows, hd)
-    k = k_ref[0, 0]
-    s = jax.lax.dot_general(
-        q, k, (((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32, precision=precision,
-    ) * scale
-    lse = lse_ref[0, 0].reshape(rows, _STAT_LANES)[:, :1]  # (rows, 1)
-    mask = kv_pos < kv_len
-    if causal:
-        mask &= kv_pos <= row_pos
-    # dead rows carry lse == _BIG -> exp underflows to exactly 0
-    p = jnp.where(mask, jnp.exp(s - lse), 0.0)
-    return p, q, k
-
-
-def _flash_bwd_dq_kernel(
-    qstart_ref, kvlen_ref, q_ref, k_ref, v_ref, do_ref, lse_ref, delta_ref,
-    dq_ref, dq_acc, *, rep, tq, tk, scale, causal, precision,
-):
-    b = pl.program_id(0)
-    qb = pl.program_id(2)
-    kb = pl.program_id(3)
-
-    @pl.when(kb == 0)
-    def _():
-        dq_acc[:] = jnp.zeros_like(dq_acc)
-
-    q_start = qstart_ref[b, 0]
-    kv_len = kvlen_ref[b, 0]
-    first_q = q_start + qb * tq
-    tile_live = (kb * tk < kv_len) & (
-        (not causal) or (kb * tk <= first_q + tq - 1)
-    )
-
-    @pl.when(tile_live)
-    def _():
-        rows = rep * tq
-        hd = q_ref.shape[-1]
-        p, _, k = _recompute_p(
-            q_ref, k_ref, lse_ref, q_start, kv_len, qb, kb,
-            rep=rep, tq=tq, tk=tk, scale=scale, causal=causal,
-            precision=precision,
-        )
-        do = do_ref[0, 0].reshape(rows, hd)
-        v = v_ref[0, 0]
-        dp = jax.lax.dot_general(
-            do, v, (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32, precision=precision,
-        )  # (rows, tk)
-        delta = delta_ref[0, 0].reshape(rows, _STAT_LANES)[:, :1]
-        ds = p * (dp - delta) * scale
-        dq_acc[:] += jax.lax.dot_general(
-            ds.astype(k.dtype), k, (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32, precision=precision,
-        )
-
-    @pl.when(kb == pl.num_programs(3) - 1)
-    def _():
-        dq_ref[0, 0] = dq_acc[:].reshape(dq_ref.shape[2:]).astype(
-            dq_ref.dtype
-        )
-
-
-def _flash_bwd_dkv_kernel(
-    qstart_ref, kvlen_ref, q_ref, k_ref, v_ref, do_ref, lse_ref, delta_ref,
-    dk_ref, dv_ref, dk_acc, dv_acc, *, rep, tq, tk, scale, causal,
-    precision,
-):
-    b = pl.program_id(0)
-    kb = pl.program_id(2)  # NOTE: grid transposed vs forward — KV outer
-    qb = pl.program_id(3)
-
-    @pl.when(qb == 0)
-    def _():
-        dk_acc[:] = jnp.zeros_like(dk_acc)
-        dv_acc[:] = jnp.zeros_like(dv_acc)
-
-    q_start = qstart_ref[b, 0]
-    kv_len = kvlen_ref[b, 0]
-    # q tile contributes iff some (row, col) pair is unmasked: the last
-    # row's horizon must reach the tile's first kv column
-    tile_live = (kb * tk < kv_len) & (
-        (not causal) or (q_start + qb * tq + tq - 1 >= kb * tk)
-    )
-
-    @pl.when(tile_live)
-    def _():
-        rows = rep * tq
-        hd = q_ref.shape[-1]
-        p, q, _ = _recompute_p(
-            q_ref, k_ref, lse_ref, q_start, kv_len, qb, kb,
-            rep=rep, tq=tq, tk=tk, scale=scale, causal=causal,
-            precision=precision,
-        )
-        do = do_ref[0, 0].reshape(rows, hd)
-        v = v_ref[0, 0]
-        # dV += p^T dO   (contract the rows axis)
-        dv_acc[:] += jax.lax.dot_general(
-            p.astype(do.dtype), do, (((0,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32, precision=precision,
-        )
-        dp = jax.lax.dot_general(
-            do, v, (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32, precision=precision,
-        )
-        delta = delta_ref[0, 0].reshape(rows, _STAT_LANES)[:, :1]
-        ds = p * (dp - delta) * scale
-        # dK += ds^T q
-        dk_acc[:] += jax.lax.dot_general(
-            ds.astype(q.dtype), q, (((0,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32, precision=precision,
-        )
-
-    @pl.when(qb == pl.num_programs(3) - 1)
-    def _():
-        dk_ref[0, 0] = dk_acc[:].astype(dk_ref.dtype)
-        dv_ref[0, 0] = dv_acc[:].astype(dv_ref.dtype)
-
-
-def _backward_impl(causal, tq, tk, interpret, res, g):
-    q, k, v, out, lse, q_start, kv_len = res
-    b, sq, nh, hd = q.shape
-    t, nkv = k.shape[1], k.shape[2]
-    rep = nh // nkv
-    scale = 1.0 / math.sqrt(hd)
-    # backward keeps the forward's TQ (the saved lse padding depends on
-    # it) but caps TK at 512: each step holds ~4 f32 (rows, tk)
-    # intermediates (s, p, dp, ds) and tk=1024 overflows the 16 MB VMEM
-    # scoped stack at the default rep*tq = 1024 rows
-    tq, tk = _clamp_tiles(tq, min(tk, 512), sq, t)
-    sq_pad = -(-sq // tq) * tq
-    t_pad = -(-t // tk) * tk
-    precision = _mxu_precision(q.dtype)
-
-    qt = _transpose_pad(q, nkv, rep, sq_pad)
-    dot_ = _transpose_pad(g.astype(q.dtype), nkv, rep, sq_pad)
-    kt = jnp.moveaxis(k, 2, 1)
-    vt = jnp.moveaxis(v, 2, 1)
-    if t_pad != t:
-        kt = jnp.pad(kt, ((0, 0), (0, 0), (0, t_pad - t), (0, 0)))
-        vt = jnp.pad(vt, ((0, 0), (0, 0), (0, t_pad - t), (0, 0)))
-    kv_len = jnp.minimum(kv_len.astype(jnp.int32), t)
-
-    # D = rowsum(dO * O): one fused elementwise+reduce in XLA (padded q
-    # rows have dO == 0 there, so their D is 0 and their ds vanishes)
-    delta = jnp.sum(
-        g.astype(jnp.float32) * out.astype(jnp.float32), axis=-1
-    )  # (B, Sq, nh)
-    delta = jnp.moveaxis(delta, 2, 1).reshape(b, nkv, rep, sq)
-    if sq_pad != sq:
-        delta = jnp.pad(delta, ((0, 0), (0, 0), (0, 0), (0, sq_pad - sq)))
-    delta = jnp.broadcast_to(
-        delta[..., None], (b, nkv, rep, sq_pad, _STAT_LANES)
-    )
-
-    smem = pl.BlockSpec((b, 1), lambda *_: (0, 0), memory_space=pltpu.SMEM)
-    q_spec = pl.BlockSpec((1, 1, rep, tq, hd),
-                          lambda bi, g_, i, j: (bi, g_, 0, i, 0))
-    stat_spec = pl.BlockSpec((1, 1, rep, tq, _STAT_LANES),
-                             lambda bi, g_, i, j: (bi, g_, 0, i, 0))
-    kv_spec = pl.BlockSpec((1, 1, tk, hd),
-                           lambda bi, g_, i, j: (bi, g_, j, 0))
-    args = (
-        q_start.astype(jnp.int32).reshape(b, 1),
-        kv_len.reshape(b, 1),
-        qt, kt, vt, dot_, lse, delta,
-    )
-    kw = dict(rep=rep, tq=tq, tk=tk, scale=scale, causal=causal,
-              precision=precision)
-
-    dqt = pl.pallas_call(
-        functools.partial(_flash_bwd_dq_kernel, **kw),
-        grid=(b, nkv, sq_pad // tq, t_pad // tk),
-        in_specs=[smem, smem, q_spec, kv_spec, kv_spec, q_spec, stat_spec,
-                  stat_spec],
-        out_specs=q_spec,
-        out_shape=jax.ShapeDtypeStruct((b, nkv, rep, sq_pad, hd),
-                                       jnp.float32),
-        scratch_shapes=[pltpu.VMEM((rep * tq, hd), jnp.float32)],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "parallel",
-                                 "arbitrary"),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=6 * b * nh * sq_pad * t_pad * hd,
-            bytes_accessed=(b * nh * sq_pad * hd * 8
-                            + b * nkv * t_pad * hd * 4),
-            transcendentals=b * nh * sq_pad * t_pad,
-        ),
-        interpret=interpret,
-    )(*args)
-
-    # KV-outer grid: q/dO/lse/delta blocks walk the INNER axis
-    q_spec_t = pl.BlockSpec((1, 1, rep, tq, hd),
-                            lambda bi, g_, i, j: (bi, g_, 0, j, 0))
-    stat_spec_t = pl.BlockSpec((1, 1, rep, tq, _STAT_LANES),
-                               lambda bi, g_, i, j: (bi, g_, 0, j, 0))
-    kv_spec_t = pl.BlockSpec((1, 1, tk, hd),
-                             lambda bi, g_, i, j: (bi, g_, i, 0))
-    dkt, dvt = pl.pallas_call(
-        functools.partial(_flash_bwd_dkv_kernel, **kw),
-        grid=(b, nkv, t_pad // tk, sq_pad // tq),
-        in_specs=[smem, smem, q_spec_t, kv_spec_t, kv_spec_t, q_spec_t,
-                  stat_spec_t, stat_spec_t],
-        out_specs=[kv_spec_t, kv_spec_t],
-        out_shape=[
-            jax.ShapeDtypeStruct((b, nkv, t_pad, hd), jnp.float32),
-            jax.ShapeDtypeStruct((b, nkv, t_pad, hd), jnp.float32),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((tk, hd), jnp.float32),
-            pltpu.VMEM((tk, hd), jnp.float32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "parallel",
-                                 "arbitrary"),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=8 * b * nh * sq_pad * t_pad * hd,
-            bytes_accessed=(b * nh * sq_pad * hd * 6
-                            + b * nkv * t_pad * hd * 12),
-            transcendentals=b * nh * sq_pad * t_pad,
-        ),
-        interpret=interpret,
-    )(*args)
-
-    dq = jnp.moveaxis(
-        dqt.reshape(b, nh, sq_pad, hd)[:, :, :sq], 1, 2
-    ).astype(q.dtype)
-    dk = jnp.moveaxis(dkt[:, :, :t], 1, 2).astype(k.dtype)
-    dv = jnp.moveaxis(dvt[:, :, :t], 1, 2).astype(v.dtype)
-    zero = lambda x: np.zeros(x.shape, dtype=jax.dtypes.float0)
-    return dq, dk, dv, zero(q_start), zero(kv_len)
-
-
-# ---------------------------------------------------------- custom VJP
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(0, 1, 2, 3))
-def _flash(causal, tq, tk, interpret, q, k, v, q_start, kv_len):
-    out, _ = _forward_impl(q, k, v, q_start, kv_len, causal=causal,
-                           tq=tq, tk=tk, interpret=interpret,
-                           save_stats=False)
-    return out
-
-
-def _flash_fwd(causal, tq, tk, interpret, q, k, v, q_start, kv_len):
-    out, lse = _forward_impl(q, k, v, q_start, kv_len, causal=causal,
-                             tq=tq, tk=tk, interpret=interpret,
-                             save_stats=True)
-    return out, (q, k, v, out, lse, q_start, kv_len)
-
-
-_flash.defvjp(_flash_fwd, _backward_impl)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("causal", "tq", "tk", "interpret"),
-)
-def flash_attention(
+def causal_attention(
     q: jax.Array,
     k: jax.Array,
     v: jax.Array,
-    q_start: jax.Array,
-    kv_len: jax.Array,
+    kv_len: Optional[jax.Array] = None,
     *,
-    causal: bool = True,
-    tq: int = 128,
-    tk: int = 1024,
-    interpret: bool = False,
+    implementation: Optional[str] = None,
 ) -> jax.Array:
-    """Fused GQA attention (differentiable — see module docstring).
+    """Causal GQA attention, queries at positions 0..S-1.
 
-    q: (B, Sq, nh, hd); k/v: (B, T, nkv, hd) with nh % nkv == 0;
-    q_start: (B,) absolute position of q[:, 0] (row i of q attends
-    kv positions <= q_start+i under causal=True); kv_len: (B,) valid KV
-    prefix per row. Returns (B, Sq, nh, hd) in q.dtype.
+    q: (B, S, n_heads, hd); k/v: (B, T, n_kv_heads, hd) with T >= S and
+    n_heads a multiple of n_kv_heads; kv_len: optional (B,) int32 count of
+    valid keys (the rest are masked). Scale 1/sqrt(hd). ``implementation``
+    is jax.nn.dot_product_attention's: "cudnn", "xla" or None.
     """
-    return _flash(causal, tq, tk, interpret, q, k, v,
-                  q_start.astype(jnp.int32), kv_len.astype(jnp.int32))
+    return jax.nn.dot_product_attention(
+        q, k, v, is_causal=True, key_value_seq_lengths=kv_len,
+        implementation=implementation,
+    )

@@ -1,40 +1,25 @@
-"""int4c: 4-bit weights on the int8 MXU (per-column scales).
-
-The fastest 4-bit serving format in this framework, built on a measured
-observation (docs/KERNEL_DESIGN.md): at decode shapes the binding floor
-of every *float-dequant* 4-bit kernel is the VPU (>= ~6 ops per weight
-element to produce bf16 operands), while the int8-MXU LLM.int8 kernel
-has no dequant at all and runs at the HBM floor. int4c keeps the int8
-GEMM structure but halves the weight stream again:
+"""int4c: symmetric int4 weights with per-column scales, int8 activations.
 
   - weights: symmetric int4, ONE f32 scale per output column
     (absmax/7). Codes are split_k-packed two-per-byte, biased by +8 so
-    unpacking is (nibble - 8) — ~2 integer VPU ops per element instead
-    of 6 float ones.
+    unpacking is (nibble - 8).
   - activations: per-row absmax int8 (the LLM.int8 recipe).
-  - GEMM: unpack int4 -> int8 in VMEM, int8 x int8 -> int32 on the MXU,
-    row x column scales applied once to the final accumulator.
+  - GEMM: unpack int4 -> int8, int8 x int8 -> int32, row x column scales
+    applied once to the accumulator. XLA compiles the whole chain.
 
 Quality: per-column weight scales are coarser than blockwise-64; the
 measured cost on the accuracy proxy is +0.16 ppl vs bf16 (blockwise int4
 +0.13) — both far under the 0.5 4-bit gate, and gated in
 docs/ACCURACY.md / tests. Activation int8 error matches llm_int8's
 (gated at 0.1).
-
-HBM floor at the TinyLlama gate/up decode shape: ~7.2 us vs the
-float-dequant int4 kernel's ~15 us VPU floor and dense bf16's 28 us.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
-from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 _EPS = 1e-12
 
@@ -46,7 +31,7 @@ def _round_up(x: int, m: int) -> int:
 @jax.tree_util.register_dataclass
 @dataclasses.dataclass
 class Int4cWeight:
-    """Weight state for int4-on-int8-MXU inference. Layout: (K, N) like
+    """Weight state for int4c inference. Layout: (K, N) like
     x @ W; codes hold rows (k, k + K_pad/2) split_k-packed per byte."""
 
     codes: jax.Array  # uint8 (K_pad/2, N_pad), nibbles biased +8
@@ -57,7 +42,7 @@ class Int4cWeight:
 
 def quantize_int4c_weight(w: jax.Array) -> Int4cWeight:
     """Quantize a dense (K, N) weight to int4c (pads K to 512, N to 128
-    so the packed halves and kernel tiles line up)."""
+    so the packed halves line up)."""
     k, n = w.shape
     wf = w.astype(jnp.float32)
     scale = jnp.max(jnp.abs(wf), axis=0) / 7.0 + _EPS
@@ -86,109 +71,14 @@ def dequantize_int4c(qw: Int4cWeight) -> jax.Array:
     return (dense * qw.scale[None, :])[:k, :n]
 
 
-# ---------------------------------------------------------------- kernel
-
-
-def _mm_i4c_kernel(xlo_ref, xhi_ref, wp_ref, rs_ref, cs_ref, out_ref,
-                   acc_ref, *, out_dtype):
-    kstep = pl.program_id(2)
-
-    @pl.when(kstep == 0)
-    def _():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-
-    packed = wp_ref[:].astype(jnp.int32)  # widen before shift (no u8 shrui)
-    lo = ((packed & 0x0F) - 8).astype(jnp.int8)
-    hi = ((packed >> 4) - 8).astype(jnp.int8)
-    acc_ref[:] += jnp.dot(xlo_ref[:], lo, preferred_element_type=jnp.int32)
-    acc_ref[:] += jnp.dot(xhi_ref[:], hi, preferred_element_type=jnp.int32)
-
-    @pl.when(kstep == pl.num_programs(2) - 1)
-    def _():
-        out_ref[:] = (
-            acc_ref[:].astype(jnp.float32) * rs_ref[:] * cs_ref[:]
-        ).astype(out_dtype)
-
-
-@functools.partial(
-    jax.jit, static_argnames=("tm", "tn", "tk", "interpret", "out_dtype")
-)
-def matmul_int4c_kernel(
-    xq: jax.Array,
-    codes: jax.Array,
-    row_scale: jax.Array,
-    col_scale: jax.Array,
-    *,
-    tm: int = 256,
-    tn: int = 0,
-    tk: int = 0,
-    interpret: bool = False,
-    out_dtype=jnp.float32,
-) -> jax.Array:
-    """``xq (M, K_pad) int8 @ unpack(codes (K_pad/2, N_pad))`` -> (M, N_pad)
-    scaled by row_scale (M,) x col_scale (N_pad,). The x halves feed the
-    lo/hi nibble planes with contiguous slices (split_k layout)."""
-    m, k_dim = xq.shape
-    k2, n = codes.shape
-    assert k_dim == 2 * k2, (k_dim, k2)
-    if m <= 16 and tn == 0 and tk == 0:
-        tn, tk = {
-            (2048, 2048): (512, 1024),
-            (2048, 5632): (512, 1024),
-            (5632, 2048): (256, 1024),
-            (2048, 32000): (256, 2048),
-        }.get((k_dim, n), (0, 0))
-    tm = min(tm, _round_up(m, 32))  # int8 min sublane tile
-    tn = tn or (512 if n % 512 == 0 else 256 if n % 256 == 0 else 128)
-    tkp = (tk // 2) or min(k2, 1024)
-    while k2 % tkp:
-        tkp //= 2
-    m_pad = _round_up(m, tm)
-    if m_pad != m:
-        xq = jnp.pad(xq, ((0, m_pad - m), (0, 0)))
-        row_scale = jnp.pad(row_scale, (0, m_pad - m))
-
-    grid = (m_pad // tm, n // tn, k2 // tkp)
-    nk_half = k2 // tkp  # grid-k offset of the hi half of x
-    out = pl.pallas_call(
-        functools.partial(_mm_i4c_kernel, out_dtype=out_dtype),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((tm, tkp), lambda i, j, s: (i, s)),
-            pl.BlockSpec((tm, tkp), lambda i, j, s: (i, s + nk_half)),
-            pl.BlockSpec((tkp, tn), lambda i, j, s: (s, j)),
-            pl.BlockSpec((tm, 1), lambda i, j, s: (i, 0)),
-            pl.BlockSpec((1, tn), lambda i, j, s: (0, j)),
-        ],
-        out_specs=pl.BlockSpec((tm, tn), lambda i, j, s: (i, j)),
-        out_shape=jax.ShapeDtypeStruct((m_pad, n), out_dtype),
-        scratch_shapes=[pltpu.VMEM((tm, tn), jnp.int32)],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * m_pad * n * 2 * k2,
-            bytes_accessed=m_pad * 2 * k2 + k2 * n + m_pad * n * 2,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(xq, xq, codes, row_scale[:, None], col_scale[None, :])
-    return out[:m]
-
-
 def matmul_int4c(
     x: jax.Array,
     qw: Int4cWeight,
     *,
     out_dtype=None,
-    use_kernel: Optional[bool] = None,
-    interpret: bool = False,
 ) -> jax.Array:
-    """``x (.., K) @ W (K, N)``: row-quantize activations to int8, int4
-    codes to the int8 MXU, scales on the accumulator. use_kernel=False is
-    the XLA oracle (same math)."""
-    if use_kernel is None:
-        use_kernel = jax.default_backend() == "tpu"
+    """``x (.., K) @ W (K, N)``: row-quantize activations to int8, unpack
+    the int4 codes to int8, int8 GEMM, scales on the accumulator."""
     out_dtype = out_dtype or x.dtype
     lead = x.shape[:-1]
     k, n = qw.shape
@@ -202,15 +92,11 @@ def matmul_int4c(
     if k_pad != k:
         xq = jnp.pad(xq, ((0, 0), (0, k_pad - k)))
 
-    if use_kernel:
-        y = matmul_int4c_kernel(xq, qw.codes, row_scale, qw.scale,
-                                interpret=interpret, out_dtype=jnp.float32)
-    else:
-        packed = qw.codes.astype(jnp.int32)
-        w8 = jnp.concatenate(
-            [(packed & 0x0F) - 8, (packed >> 4) - 8], axis=0
-        ).astype(jnp.int8)
-        acc = jnp.dot(xq, w8, preferred_element_type=jnp.int32)
-        y = acc.astype(jnp.float32) * row_scale[:, None] * qw.scale[None, :]
+    packed = qw.codes.astype(jnp.int32)
+    w8 = jnp.concatenate(
+        [(packed & 0x0F) - 8, (packed >> 4) - 8], axis=0
+    ).astype(jnp.int8)
+    acc = jnp.dot(xq, w8, preferred_element_type=jnp.int32)
+    y = acc.astype(jnp.float32) * row_scale[:, None] * qw.scale[None, :]
 
     return y[:, :n].astype(out_dtype).reshape(*lead, n)

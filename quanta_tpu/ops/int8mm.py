@@ -4,10 +4,10 @@ Behavior contract from the reference's `Linear8bitLt` shell
 (/root/reference/Quanta/nn/linear.py:10-45: `threshold=6.0`,
 `has_fp16_weights`) and the LLM.int8() paper: activation features whose
 magnitude exceeds `threshold` are computed in 16-bit; everything else goes
-through an int8 x int8 -> int32 MXU matmul with per-row activation scales
+through an int8 x int8 -> int32 matmul with per-row activation scales
 and per-column weight scales.
 
-TPU-native formulation (XLA requires static shapes, so the dynamic outlier
+Static formulation (XLA requires static shapes, so the dynamic outlier
 set becomes a *static-capacity* set, SURVEY.md §7 hard part 2):
 
   - At quantize time we reserve `outlier_capacity` columns. A bf16 copy of
@@ -20,19 +20,16 @@ set becomes a *static-capacity* set, SURVEY.md §7 hard part 2):
     (capacity misses are measurable via `outlier_coverage`).
 
 The int8 GEMM uses jnp.dot with preferred_element_type=int32, which XLA
-lowers directly onto the MXU's int8 path.
+lowers onto an int8 tensor-core GEMM.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 _EPS = 1e-12
 
@@ -90,9 +87,9 @@ def quantize_int8_weight(
     scale = jnp.maximum(jnp.max(jnp.abs(w_inlier), axis=0) / 127.0, _EPS)
     codes = jnp.clip(jnp.round(w_inlier / scale[None, :]), -127, 127).astype(jnp.int8)
 
-    # pad to kernel tiles ONCE at quantize time (padding per matmul call
-    # would copy the weight every step). Zero code rows/cols contribute
-    # nothing to the GEMM; logical dims live in ``shape``.
+    # pad to 128 ONCE at quantize time (padding per matmul call would
+    # copy the weight every step). Zero code rows/cols contribute nothing
+    # to the GEMM; logical dims live in ``shape``.
     k_pad, n_pad = _round_up(k, 128), _round_up(n, 128)
     codes = jnp.pad(codes, ((0, k_pad - k), (0, n_pad - n)))
     scale = jnp.pad(scale.astype(jnp.float32), (0, n_pad - n))
@@ -108,227 +105,26 @@ def quantize_int8_weight(
     )
 
 
-# ---------------------------------------------------------- fused kernel
-
-
-def _mm_i8_kernel(xq_ref, w_ref, rs_ref, cs_ref, out_ref, acc_ref, *,
-                  out_dtype):
-    """int8 x int8 -> int32 MXU GEMM; row x col scales on the final
-    accumulator. No per-element dequant ever touches the VPU — the whole
-    reason LLM.int8's inner GEMM can beat the bf16 roofline on weight
-    bytes (codes are half the HBM traffic of bf16 weights)."""
-    kstep = pl.program_id(2)
-
-    @pl.when(kstep == 0)
-    def _():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-
-    acc_ref[:] += jnp.dot(
-        xq_ref[:], w_ref[:], preferred_element_type=jnp.int32
-    )
-
-    @pl.when(kstep == pl.num_programs(2) - 1)
-    def _():
-        out_ref[:] = (
-            acc_ref[:].astype(jnp.float32) * rs_ref[:] * cs_ref[:]
-        ).astype(out_dtype)
-
-
-def _mm_i8_fused_kernel(x_ref, w_ref, rs_ref, cs_ref, yout_ref, out_ref,
-                        acc_ref, *, out_dtype):
-    """Fully-fused variant (VERDICT r4 #3: close the gap to the HBM
-    floor): the activation row-quantize runs in the PROLOGUE (x arrives
-    as bf16/f32; its int8 codes never round-trip HBM) and the
-    scales + outlier-GEMM addition fold into the EPILOGUE — one Pallas
-    program replaces the XLA quantize / kernel / add fusion chain."""
-    kstep = pl.program_id(2)
-
-    @pl.when(kstep == 0)
-    def _():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-
-    rs = rs_ref[:]  # (tm, 1) f32, precomputed over inlier features
-    xq = jnp.clip(
-        jnp.round(x_ref[:].astype(jnp.float32) / rs), -127, 127
-    ).astype(jnp.int32).astype(jnp.int8)
-    acc_ref[:] += jnp.dot(xq, w_ref[:], preferred_element_type=jnp.int32)
-
-    @pl.when(kstep == pl.num_programs(2) - 1)
-    def _():
-        out_ref[:] = (
-            acc_ref[:].astype(jnp.float32) * rs * cs_ref[:]
-            + yout_ref[:]
-        ).astype(out_dtype)
-
-
-@functools.partial(
-    jax.jit, static_argnames=("tm", "tn", "tk", "interpret", "out_dtype")
-)
-def matmul_int8_fused(
-    x: jax.Array,
-    codes: jax.Array,
-    row_scale: jax.Array,
-    col_scale: jax.Array,
-    y_out: jax.Array,
-    *,
-    tm: int = 256,
-    tn: int = 0,
-    tk: int = 0,
-    interpret: bool = False,
-    out_dtype=jnp.float32,
-) -> jax.Array:
-    """``quantize(x) @ codes * row_scale * col_scale + y_out`` in one
-    pallas_call. x is the raw (M, K_pad) activation (bf16/f32); y_out the
-    (M, N) outlier-GEMM partial. See _mm_i8_fused_kernel."""
-    m, k_dim = x.shape
-    kw, n = codes.shape
-    assert k_dim == kw, (k_dim, kw)
-    if m <= 16 and tn == 0 and tk == 0:
-        tn, tk = {
-            (2048, 2048): (512, 1024),
-            (2048, 5632): (512, 1024),
-            (5632, 2048): (256, 512),
-            (2048, 32000): (256, 2048),
-        }.get((kw, n), (0, 0))
-    tm = min(tm, _round_up(m, 32))
-    tn = tn or (512 if n % 512 == 0 else 256 if n % 256 == 0 else 128)
-    tk = tk or min(kw, 2048)
-    while kw % tk:
-        tk //= 2
-    m_pad = _round_up(m, tm)
-    if m_pad != m:
-        x = jnp.pad(x, ((0, m_pad - m), (0, 0)))
-        row_scale = jnp.pad(row_scale, (0, m_pad - m), constant_values=1.0)
-        y_out = jnp.pad(y_out, ((0, m_pad - m), (0, 0)))
-
-    grid = (m_pad // tm, n // tn, kw // tk)
-    out = pl.pallas_call(
-        functools.partial(_mm_i8_fused_kernel, out_dtype=out_dtype),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((tm, tk), lambda i, j, s: (i, s)),
-            pl.BlockSpec((tk, tn), lambda i, j, s: (s, j)),
-            pl.BlockSpec((tm, 1), lambda i, j, s: (i, 0)),
-            pl.BlockSpec((1, tn), lambda i, j, s: (0, j)),
-            pl.BlockSpec((tm, tn), lambda i, j, s: (i, j)),
-        ],
-        out_specs=pl.BlockSpec((tm, tn), lambda i, j, s: (i, j)),
-        out_shape=jax.ShapeDtypeStruct((m_pad, n), out_dtype),
-        scratch_shapes=[pltpu.VMEM((tm, tn), jnp.int32)],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * m_pad * n * kw,
-            bytes_accessed=m_pad * kw * x.dtype.itemsize + kw * n
-            + m_pad * n * 6,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(x, codes, row_scale[:, None], col_scale[None, :], y_out)
-    return out[:m]
-
-
-@functools.partial(
-    jax.jit, static_argnames=("tm", "tn", "tk", "interpret", "out_dtype")
-)
-def matmul_int8_kernel(
-    xq: jax.Array,
-    codes: jax.Array,
-    row_scale: jax.Array,
-    col_scale: jax.Array,
-    *,
-    tm: int = 256,
-    tn: int = 0,
-    tk: int = 0,
-    interpret: bool = False,
-    out_dtype=jnp.float32,
-) -> jax.Array:
-    """``xq (M, K) int8 @ codes (K, N) int8`` -> (M, N) out_dtype,
-    scaled by ``row_scale (M,) * col_scale (N,)`` on the int32
-    accumulator. K and N must be pre-padded (quantize_int8_weight pads to
-    128); M is padded here. Verifies SURVEY §3.3's int8-MXU seam: XLA on
-    TPU lowers int8 x int8 -> int32 dots onto the MXU's int8 path, and so
-    does Pallas."""
-    m, k_dim = xq.shape
-    kw, n = codes.shape
-    assert k_dim == kw, (k_dim, kw)
-    if m <= 16 and tn == 0 and tk == 0:
-        # measured decode tiles (benchmarks/tile_sweep.py, v5e):
-        # gate/up 23.4 -> 17.7 us with (512, 1024); down prefers narrow N
-        tn, tk = {
-            (2048, 2048): (512, 1024),
-            (2048, 5632): (512, 1024),
-            (5632, 2048): (256, 512),
-            (2048, 32000): (256, 2048),
-        }.get((kw, n), (0, 0))
-    tm = min(tm, _round_up(m, 32))  # int8 min sublane tile is 32
-    tn = tn or (512 if n % 512 == 0 else 256 if n % 256 == 0 else 128)
-    tk = tk or min(kw, 2048)
-    while kw % tk:
-        tk //= 2
-    m_pad = _round_up(m, tm)
-    if m_pad != m:
-        xq = jnp.pad(xq, ((0, m_pad - m), (0, 0)))
-        row_scale = jnp.pad(row_scale, (0, m_pad - m))
-
-    grid = (m_pad // tm, n // tn, kw // tk)
-    out = pl.pallas_call(
-        functools.partial(_mm_i8_kernel, out_dtype=out_dtype),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((tm, tk), lambda i, j, s: (i, s)),
-            pl.BlockSpec((tk, tn), lambda i, j, s: (s, j)),
-            pl.BlockSpec((tm, 1), lambda i, j, s: (i, 0)),
-            pl.BlockSpec((1, tn), lambda i, j, s: (0, j)),
-        ],
-        out_specs=pl.BlockSpec((tm, tn), lambda i, j, s: (i, j)),
-        out_shape=jax.ShapeDtypeStruct((m_pad, n), out_dtype),
-        scratch_shapes=[pltpu.VMEM((tm, tn), jnp.int32)],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * m_pad * n * kw,
-            bytes_accessed=m_pad * kw + kw * n + m_pad * n * 2,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(xq, codes, row_scale[:, None], col_scale[None, :])
-    return out[:m]
-
-
 def matmul_int8(
     x: jax.Array,
     qw: Int8Weight,
     *,
     out_dtype=None,
-    use_kernel: Optional[bool] = None,
-    fused: Optional[bool] = None,
-    interpret: bool = False,
 ) -> jax.Array:
-    """``x (.., K) @ W (K, N)`` via int8 GEMM + bf16 outlier GEMM.
+    """``x (.., K) @ W (K, N)`` via int8 GEMM + 16-bit outlier GEMM.
 
-    use_kernel=True routes the inner GEMM through the Pallas int8-MXU
-    kernel; False keeps the pure-XLA reference path (CPU oracle).
-    Default: kernel on TPU. ``fused=True`` additionally runs the
-    activation quantize in the kernel prologue and the scales +
-    outlier-add in its epilogue (one pallas_call end to end — measured
-    faster at every decode shape, docs/KERNEL_DESIGN.md r5); default
-    follows use_kernel.
+    The int8 x int8 -> int32 ``jnp.dot`` is left to XLA, which hands it
+    to an int8 tensor-core GEMM on the GPU and fuses the activation
+    quantize and the scales around it.
     """
-    if use_kernel is None:
-        use_kernel = jax.default_backend() == "tpu"
-    if fused is None:
-        fused = use_kernel
     out_dtype = out_dtype or x.dtype
     lead = x.shape[:-1]
     k, n = qw.shape
     x2 = x.reshape(-1, k).astype(jnp.float32)
 
-    # 16-bit path: gathered outlier features. f32 accumulation both for
-    # accuracy and because CPU XLA can't dispatch bf16xbf16->f32 dots;
-    # the outlier GEMM is ~1.5% of K so the cast costs nothing material.
+    # 16-bit path: gathered outlier features in f32 (TF32 on the GPU
+    # unless a matmul precision is set); the outlier GEMM is ~1.5% of K,
+    # so the cast costs nothing material.
     x_out = jnp.take(x2, qw.outlier_idx, axis=1)
     y_out = jnp.dot(
         x_out.astype(jnp.float32),
@@ -346,34 +142,13 @@ def matmul_int8(
     row_scale = jnp.maximum(jnp.max(jnp.abs(x_in), axis=1) / 127.0, _EPS)
 
     k_pad = qw.codes.shape[0]
-    if use_kernel and fused:
-        xp = x2
-        if k_pad != k:
-            xp = jnp.pad(xp, ((0, 0), (0, k_pad - k)))
-        # y_out is already (M, N_pad): w_outlier was padded at quantize time
-        y = matmul_int8_fused(
-            xp, qw.codes, row_scale, qw.scale, y_out, interpret=interpret,
-            out_dtype=jnp.float32,
-        )
-        return y[:, :n].astype(out_dtype).reshape(*lead, n)
-    if use_kernel:
-        xq = jnp.clip(jnp.round(x2 / row_scale[:, None]), -127, 127).astype(
-            jnp.int8
-        )
-        if k_pad != k:
-            xq = jnp.pad(xq, ((0, 0), (0, k_pad - k)))
-        y_in = matmul_int8_kernel(
-            xq, qw.codes, row_scale, qw.scale, interpret=interpret,
-            out_dtype=jnp.float32,
-        )
-    else:
-        xq = jnp.clip(jnp.round(x_in / row_scale[:, None]), -127, 127).astype(
-            jnp.int8
-        )
-        if k_pad != k:
-            xq = jnp.pad(xq, ((0, 0), (0, k_pad - k)))
-        acc = jnp.dot(xq, qw.codes, preferred_element_type=jnp.int32)
-        y_in = acc.astype(jnp.float32) * row_scale[:, None] * qw.scale[None, :]
+    xq = jnp.clip(jnp.round(x_in / row_scale[:, None]), -127, 127).astype(
+        jnp.int8
+    )
+    if k_pad != k:
+        xq = jnp.pad(xq, ((0, 0), (0, k_pad - k)))
+    acc = jnp.dot(xq, qw.codes, preferred_element_type=jnp.int32)
+    y_in = acc.astype(jnp.float32) * row_scale[:, None] * qw.scale[None, :]
 
     y = (y_in[:, :n] + y_out[:, :n]).astype(out_dtype)
     return y.reshape(*lead, n)

@@ -1,590 +1,192 @@
-"""Fused dequant-matmul Pallas kernels (the TPU-native kernel backend).
+"""Fused dequant-matmul kernel (Pallas, Triton route) for small-M decode.
 
 Role-equivalent of the reference's (absent) CUDA kernel backend
 (/root/reference/Quanta/backends/__init__.py:17-26 imports a package that
 does not exist) and the seam identified at
 /root/reference/Quanta/functional/tensor_ops.py:72-82, where quantized
 matmul is dequant->fp32 GEMM->requant. Here packed weights stay packed in
-HBM; nibbles are unpacked and dequantized in VMEM tiles that feed the MXU
-directly, so bf16 weights never materialize in HBM.
+device memory: each program loads one quant block of codes at a time,
+dequantizes it in registers and feeds the tensor cores, so a bf16 copy of
+the weight is never written or re-read.
 
-Performance design (measured on TPU v5e, decode shapes M=8; see
-experiments/kbench2.py and docs/KERNEL_BENCH.md):
+Why a kernel at all: decode at M <= 16 is bound by the bytes read. XLA
+turns ``x @ dequant(W)`` into a dequant fusion that writes a dense copy of
+W, then a GEMM that reads it back; reading 4-bit codes instead is the
+whole gain of the format. Large M (prefill, training) is compute-bound
+and stays on XLA's dequant + cuBLAS (ops.use_fused_matmul decides).
 
-  * Memory-bound decode is limited by VPU dequant ops per weight element,
-    not HBM or MXU. Table lookup via a select chain costs ~30 VPU ops per
-    element (round-1 kernel: 0.3x dense bf16 speed). Dequant must be
-    arithmetic to win:
-      - polynomial codebooks ("nf4a": cubic Horner, "int4": linear) run at
-        3-5 VPU ops/element -> ~2-4x FASTER than dense bf16 decode;
-      - "nf8" dequantizes with its defining tanh formula;
-      - table codebooks ("nf4", "fp4") use a 4-level binary select tree
-        (4 masks + 15 selects, ~0.8x dense) — kept for exact QLoRA-NF4
-        compatibility; prefer "nf4a" for serving.
-  * Blockwise scales arrive as BlockSpec-fed (sb, tn) tiles (sb = scale
-    rows per K-step, a multiple of 8 by the quantizer's K padding) and are
-    expanded sublane-wise by a broadcast-reshape — the round-1 kernel
-    instead burned an MXU matmul per K-step on a one-hot expansion.
+Shape of the kernel (one block of the grid, no state shared between
+blocks):
+
+  grid = (M tiles, N tiles, K splits). Each program owns an (tm, tn)
+  output tile and one contiguous range of quant blocks along K. It loops
+  over that range inside the block (``lax.fori_loop``; Triton pipelines
+  the loads over _NUM_STAGES stages), unpacks the split_k nibbles, applies the
+  block's scale row and runs a bf16 dot into an f32 accumulator. At
+  N = 2048 one program per N tile cannot fill the card's SMs, so K is
+  split and the (splits, M, N) f32 partials are summed by XLA afterwards.
 
 Layouts (see quanta_tpu.core.packing / codecs.quantize_matmul_weight):
-  - 4-bit: codes (K/2, N) uint8 split_k-packed, scales (K/B, N) f32.
-    The kernel computes  x[:, :K/2] @ deq(lo) + x[:, K/2:] @ deq(hi)
-    with contiguous activation slices — no lane shuffles.
-  - 8-bit: codes (K, N) int8 (symmetric) or uint8 (codebook),
-    scales (K/B, N) f32.
+  - 4-bit: codes (K/2, N) uint8 split_k-packed: byte row r holds K-rows
+    r (low nibble) and r + K/2 (high nibble). scales (K/B, N) f32.
+  - 8-bit: codes (K, N) int8 (symmetric) or uint8 (codebook), same scales.
   K and N are pre-padded by the quantizer (K % 16*block == 0, N % 128 == 0).
+
+The dequant rule is codebooks.dequant_codes, shared with the plain path.
+The 256-level fp8 table needs a gather, which Triton does not lower: that
+format takes the plain path (kernel_supports).
 """
 
 from __future__ import annotations
 
 import functools
-import math
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
-from quanta_tpu.core import codebooks
+from quanta_tpu.core import codebooks, codecs
 from quanta_tpu.core.qtensor import QuantizedTensor
+
+# Tensor-core dots through Triton need every operand dimension >= 16.
+MIN_TILE = 16
+# Programs to aim for when splitting K: four waves of the H100's 132 SMs.
+_TARGET_PROGRAMS = 528
+# Triton software-pipelining depth of the in-block K loop.
+_NUM_STAGES = 3
+# Warps per program (two were no faster than four in an H100 sweep).
+_NUM_WARPS = 4
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _round_up(x: int, m: int) -> int:
-    return _cdiv(x, m) * m
+def _pow2(x: int) -> bool:
+    return x > 0 and x & (x - 1) == 0
 
 
-# ------------------------------------------------------------ dequant math
-
-
-def _lut_tree(codes: jax.Array, levels: np.ndarray) -> jax.Array:
-    """16-entry lookup as a binary select tree: 4 bit masks + 15 selects."""
-    assert len(levels) == 16
-    b0 = (codes & 1) != 0
-    b1 = (codes & 2) != 0
-    b2 = (codes & 4) != 0
-    b3 = (codes & 8) != 0
-    lv = [float(v) for v in levels]
-    t = [jnp.where(b0, lv[2 * j + 1], lv[2 * j]) for j in range(8)]
-    u = [jnp.where(b1, t[2 * j + 1], t[2 * j]) for j in range(4)]
-    v = [jnp.where(b2, u[2 * j + 1], u[2 * j]) for j in range(2)]
-    return jnp.where(b3, v[1], v[0])
-
-
-def _lut_chain(codes: jax.Array, levels: np.ndarray) -> jax.Array:
-    out = jnp.full(codes.shape, float(levels[0]), jnp.float32)
-    for i in range(1, len(levels)):
-        out = jnp.where(codes == i, float(levels[i]), out)
-    return out
-
-
-def _dequant_codes(codes_i32: jax.Array, codebook: str | None) -> jax.Array:
-    """In-kernel dequant of integer codes to normalized f32 values."""
-    if codebook is None:  # symmetric int8: codes ARE the values
-        return codes_i32.astype(jnp.float32)
-    coeffs = codebooks.get_poly_coeffs(codebook)
-    if coeffs is not None:  # polynomial codebook: Horner, 1 madd per degree
-        cf = codes_i32.astype(jnp.float32)
-        out = jnp.full(cf.shape, np.float32(coeffs[0]), jnp.float32)
-        for a in coeffs[1:]:
-            out = out * cf + np.float32(a)
-        return out
-    if codebook == "nf8":  # defining formula: tanh(2*(2c/255 - 1))/tanh(2)
-        cf = codes_i32.astype(jnp.float32)
-        return jnp.tanh((cf * np.float32(2.0 / 255.0) - 1.0) * 2.0) * np.float32(
-            1.0 / math.tanh(2.0)
-        )
-    levels = np.asarray(codebooks._REGISTRY[codebook])
-    if len(levels) == 16:
-        return _lut_tree(codes_i32, levels)
-    return _lut_chain(codes_i32, levels)  # 256-entry fallback (fp8): slow
-
-
-def _expand_scales(scale_tile: jax.Array, block: int) -> jax.Array:
-    """(sb, TN) f32 -> (sb*block, TN): each scale row over its block.
-    Pure sublane broadcast + reshape; no MXU, no dynamic slicing."""
-    nb, tn = scale_tile.shape
-    return jnp.broadcast_to(scale_tile[:, None, :], (nb, block, tn)).reshape(
-        nb * block, tn
+def kernel_supports(qt: QuantizedTensor) -> bool:
+    """True when the fused kernel can run this weight: a power-of-two
+    block of at least 16 rows, an N padded to 16, and a codebook whose
+    dequant is arithmetic (everything but the 256-level fp8 table)."""
+    return (
+        (qt.packed == "split_k" or qt.bits == 8)
+        and _pow2(qt.block_size)
+        and qt.block_size >= MIN_TILE
+        and qt.codes.shape[-1] % MIN_TILE == 0
+        and codebooks.has_arithmetic_dequant(qt.codebook)
     )
 
 
-def _pick_tile_n(n: int) -> int:
-    for tn in (512, 256, 128):
-        if n % tn == 0:
-            return tn
-    raise ValueError(f"N={n} is not a multiple of 128 (quantizer pads N)")
+def pick_tiles(m: int, n: int, n_blocks: int) -> tuple[int, int, int]:
+    """(tm, tn, splits) for an (m, ., n) product over ``n_blocks`` quant
+    blocks: the smallest M tile that holds the rows (16 at decode), the
+    widest N tile up to 64 that divides N, and K split in powers of two
+    until the grid covers about four waves of SMs (a sweep at M=8 on an
+    H100: PERF.md "Kernel decisions")."""
+    tm = min(64, max(MIN_TILE, 1 << (m - 1).bit_length()))
+    tn = next(t for t in (64, 32, 16) if n % t == 0)
+    tiles = _cdiv(m, tm) * (n // tn)
+    splits = 1
+    while (tiles * splits * 2 <= _TARGET_PROGRAMS
+           and n_blocks % (splits * 2) == 0
+           and n_blocks // (splits * 2) >= 2):
+        splits *= 2
+    return tm, tn, splits
 
 
-# Decode-shape (M <= 16) tile overrides, measured on v5e by
-# benchmarks/tile_sweep.py (streaming-weights harness): (bits, K_pad,
-# N_pad) -> (tn, tk), keyed on the PADDED dims the kernel actually sees
-# (the quantizer pads K to 16*block and N to 128 — e.g. TinyLlama's
-# down 5632 arrives as 6144). Covers the TinyLlama + Llama-2-7B serving
-# projections; other shapes use the heuristics. Gains vs heuristic
-# tiles: int8 lm_head 179 -> 122 us, nf4a down 39.5 -> 24.7 us, int4
-# qkv 16.1 -> 6.8 us.
-_TUNED_DECODE_TILES = {
-    (4, 2048, 2048): (512, 1024),
-    (4, 2048, 5632): (512, 0),
-    (4, 6144, 2048): (256, 2048),   # down (K 5632 padded)
-    (4, 2048, 32000): (256, 2048),
-    (8, 2048, 2048): (256, 2048),
-    (8, 2048, 5632): (512, 1024),
-    (8, 6144, 2048): (256, 4096),   # down (K 5632 padded)
-    (8, 2048, 32000): (256, 4096),
-    # Llama-2-7B projections (4-11% over the heuristics)
-    (4, 4096, 4096): (512, 4096),
-    (4, 4096, 11008): (256, 2048),
-    (4, 11264, 4096): (512, 2048),  # down (K 11008 padded)
-}
+def _fused_kernel(x_ref, w_ref, s_ref, o_ref, *, codebook, block, packed,
+                  blocks_per_split, half_blocks):
+    """One (tm, tn) output tile over one K split.
 
+    x_ref (tm, K_pad), w_ref (K_pad/2 or K_pad, tn), s_ref (K_pad/B, tn),
+    o_ref (tm, tn) f32 partial for this split."""
+    first = pl.program_id(2) * blocks_per_split
+    tm, tn = o_ref.shape
 
-def _tuned_tiles(bits: int, m: int, k: int, n: int, tn: int, tk: int):
-    """Apply the measured decode-tile table when the caller didn't pick."""
-    if m <= 16 and tn == 0 and tk == 0:
-        return _TUNED_DECODE_TILES.get((bits, k, n), (tn, tk))
-    return tn, tk
+    def deq(codes, row):
+        return (codebooks.dequant_codes(codes, codebook)
+                * s_ref[pl.ds(row, 1), :]).astype(x_ref.dtype)
 
+    def body(i, acc):
+        c = first + i
+        rows = pl.ds(pl.multiple_of(c * block, block), block)
+        codes = w_ref[rows, :].astype(jnp.int32)
+        if packed:
+            # split_k: low nibble is K-row c*B + r, high nibble is
+            # K-row K/2 + c*B + r (scale row half_blocks + c)
+            hi_rows = pl.ds(pl.multiple_of((c + half_blocks) * block, block),
+                            block)
+            acc += jnp.dot(x_ref[:, rows], deq(codes & 0x0F, c),
+                           preferred_element_type=jnp.float32)
+            acc += jnp.dot(x_ref[:, hi_rows],
+                           deq(codes >> 4, c + half_blocks),
+                           preferred_element_type=jnp.float32)
+        else:
+            acc += jnp.dot(x_ref[:, rows], deq(codes, c),
+                           preferred_element_type=jnp.float32)
+        return acc
 
-def _pick_tile_k(k_rows: int, unit: int, cap: int) -> int:
-    """Largest multiple of ``unit`` that divides k_rows, at most ``cap``."""
-    best = unit
-    t = unit
-    while t <= min(cap, k_rows):
-        if k_rows % t == 0:
-            best = t
-        t += unit
-    return best
-
-
-# ------------------------------------------------------------- 4-bit kernel
-
-
-def _mm4_kernel(
-    x_lo_ref, x_hi_ref, wp_ref, s_lo_ref, s_hi_ref, out_ref, acc_ref,
-    *, codebook: str, block: int, out_dtype,
-):
-    k = pl.program_id(2)
-
-    @pl.when(k == 0)
-    def _():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-
-    packed = wp_ref[:].astype(jnp.int32)  # widen before shift (no u8 shrui)
-    lo = packed & 0x0F
-    hi = packed >> 4
-
-    w_lo = _dequant_codes(lo, codebook) * _expand_scales(s_lo_ref[:], block)
-    w_hi = _dequant_codes(hi, codebook) * _expand_scales(s_hi_ref[:], block)
-
-    acc_ref[:] += jnp.dot(
-        x_lo_ref[:], w_lo.astype(x_lo_ref.dtype),
-        preferred_element_type=jnp.float32,
-    )
-    acc_ref[:] += jnp.dot(
-        x_hi_ref[:], w_hi.astype(x_hi_ref.dtype),
-        preferred_element_type=jnp.float32,
-    )
-
-    @pl.when(k == pl.num_programs(2) - 1)
-    def _():
-        out_ref[:] = acc_ref[:].astype(out_dtype)
+    o_ref[...] = jax.lax.fori_loop(
+        0, blocks_per_split, body, jnp.zeros((tm, tn), jnp.float32))
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=("codebook", "block", "tm", "tn", "tk", "interpret",
-                     "out_dtype"),
+    static_argnames=("codebook", "block", "packed", "interpret", "out_dtype"),
 )
-def matmul_4bit(
-    x: jax.Array,
-    codes_packed: jax.Array,
-    scales: jax.Array,
-    *,
-    codebook: str = "nf4a",
-    block: int = 64,
-    tm: int = 256,
-    tn: int = 0,
-    tk: int = 0,
-    interpret: bool = False,
-    out_dtype=None,
-) -> jax.Array:
-    """``x (M, K) @ W (K_pad, N_pad)`` with W split_k-packed 4-bit codes.
-
-    codes_packed: (K_pad/2, N_pad) uint8; scales: (K_pad/block, N_pad) f32
-    (from core.quantize_matmul_weight, which pads K_pad % 16*block == 0 and
-    N_pad % 128 == 0). x may have logical K <= K_pad; it is zero-padded.
-    tn/tk of 0 mean auto-pick.
-    """
-    m, k_dim = x.shape
-    k2, n = codes_packed.shape
-    if k_dim < 2 * k2:
-        x = jnp.pad(x, ((0, 0), (0, 2 * k2 - k_dim)))
-    elif k_dim != 2 * k2:
-        raise ValueError(f"x K={k_dim} > packed K={2 * k2}")
-    out_dtype = out_dtype or x.dtype
-
-    tn, tk = _tuned_tiles(4, m, 2 * k2, n, tn, tk)
-    unit = 8 * block
-    tm = min(tm, _round_up(m, 16))
-    tn = tn or _pick_tile_n(n)
-    # cap the packed-K tile so dequant intermediates stay well inside VMEM
-    cap = tk // 2 if tk else max(unit, (1 << 20) // (2 * tn) * 2)
-    tkp = _pick_tile_k(k2, unit, cap)
-    sb = tkp // block
-
-    m_pad = _round_up(m, tm)
-    if m_pad != m:
-        x = jnp.pad(x, ((0, m_pad - m), (0, 0)))
-
-    grid = (m_pad // tm, n // tn, k2 // tkp)
-    nk_half = k2 // tkp  # grid-k offset of the hi half
-
-    kernel = functools.partial(
-        _mm4_kernel, codebook=codebook, block=block, out_dtype=out_dtype
-    )
-    out = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((tm, tkp), lambda i, j, k: (i, k)),  # x lo half
-            pl.BlockSpec((tm, tkp), lambda i, j, k: (i, k + nk_half)),  # x hi
-            pl.BlockSpec((tkp, tn), lambda i, j, k: (k, j)),  # packed codes
-            pl.BlockSpec((sb, tn), lambda i, j, k: (k, j)),  # lo scales
-            pl.BlockSpec((sb, tn), lambda i, j, k: (k + nk_half, j)),  # hi
-        ],
-        out_specs=pl.BlockSpec((tm, tn), lambda i, j, k: (i, j)),
-        out_shape=jax.ShapeDtypeStruct((m_pad, n), out_dtype),
-        scratch_shapes=[pltpu.VMEM((tm, tn), jnp.float32)],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * m_pad * n * 2 * k2,
-            bytes_accessed=m_pad * 2 * k2 * 2 + k2 * n + m_pad * n * 2,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(x, x, codes_packed, scales, scales)
-    return out[:m]
-
-
-# ------------------------------------------------------------- 8-bit kernel
-
-
-def _mm8_kernel(
-    x_ref, w_ref, s_ref, out_ref, acc_ref, *, codebook, block: int, out_dtype
-):
-    k = pl.program_id(2)
-
-    @pl.when(k == 0)
-    def _():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-
-    w = _dequant_codes(w_ref[:].astype(jnp.int32), codebook)
-    w = w * _expand_scales(s_ref[:], block)
-
-    acc_ref[:] += jnp.dot(
-        x_ref[:], w.astype(x_ref.dtype), preferred_element_type=jnp.float32
-    )
-
-    @pl.when(k == pl.num_programs(2) - 1)
-    def _():
-        out_ref[:] = acc_ref[:].astype(out_dtype)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("codebook", "block", "tm", "tn", "tk", "interpret",
-                     "out_dtype"),
-)
-def matmul_8bit(
+def fused_matmul(
     x: jax.Array,
     codes: jax.Array,
     scales: jax.Array,
     *,
-    codebook: str | None = None,
-    block: int = 64,
-    tm: int = 256,
-    tn: int = 0,
-    tk: int = 0,
+    codebook: str | None,
+    block: int,
+    packed: bool,
     interpret: bool = False,
     out_dtype=None,
 ) -> jax.Array:
-    """``x (M, K) @ W (K_pad, N_pad)`` with 8-bit codes + blockwise scales.
+    """``x (M, K) @ W (K_pad, N_pad)`` with W held as blockwise codes.
 
-    codes: (K_pad, N_pad) int8 (symmetric, codebook=None) or uint8
-    (nf8/fp8 codebook); scales: (K_pad/block, N_pad) f32.
-    """
+    codes: (K_pad/2, N_pad) uint8 split_k-packed (``packed``) or
+    (K_pad, N_pad) int8/uint8; scales (K_pad/block, N_pad) f32. x may have
+    logical K <= K_pad and any M: both are zero-padded here; pick_tiles
+    chooses the tiles. Returns (M, N_pad) in out_dtype (x.dtype by
+    default)."""
     m, k_dim = x.shape
-    kw, n = codes.shape
-    if k_dim < kw:
-        x = jnp.pad(x, ((0, 0), (0, kw - k_dim)))
-    elif k_dim != kw:
-        raise ValueError(f"x K={k_dim} > codes K={kw}")
+    k_rows, n = codes.shape
+    k_pad = 2 * k_rows if packed else k_rows
+    if k_dim > k_pad:
+        raise ValueError(f"x K={k_dim} > weight K={k_pad}")
     out_dtype = out_dtype or x.dtype
-
-    tn, tk = _tuned_tiles(8, m, kw, n, tn, tk)
-    unit = 8 * block
-    tm = min(tm, _round_up(m, 16))
-    tn = tn or _pick_tile_n(n)
-    cap = tk if tk else max(unit, (1 << 21) // (2 * tn) * 2)
-    tkk = _pick_tile_k(kw, unit, cap)
-    sb = tkk // block
-
-    m_pad = _round_up(m, tm)
-    if m_pad != m:
-        x = jnp.pad(x, ((0, m_pad - m), (0, 0)))
-
-    grid = (m_pad // tm, n // tn, kw // tkk)
+    n_blocks = k_rows // block  # quant blocks the loop walks (packed rows)
+    tm, tn, splits = pick_tiles(m, n, n_blocks)
+    m_pad = _cdiv(m, tm) * tm
+    x = jnp.pad(x, ((0, m_pad - m), (0, k_pad - k_dim)))
 
     kernel = functools.partial(
-        _mm8_kernel, codebook=codebook, block=block, out_dtype=out_dtype
+        _fused_kernel, codebook=codebook, block=block, packed=packed,
+        blocks_per_split=n_blocks // splits, half_blocks=n_blocks,
     )
-    out = pl.pallas_call(
+    partial = pl.pallas_call(
         kernel,
-        grid=grid,
+        grid=(m_pad // tm, n // tn, splits),
         in_specs=[
-            pl.BlockSpec((tm, tkk), lambda i, j, k: (i, k)),
-            pl.BlockSpec((tkk, tn), lambda i, j, k: (k, j)),
-            pl.BlockSpec((sb, tn), lambda i, j, k: (k, j)),
+            pl.BlockSpec((tm, k_pad), lambda i, j, s: (i, 0)),
+            pl.BlockSpec((k_rows, tn), lambda i, j, s: (0, j)),
+            pl.BlockSpec((k_pad // block, tn), lambda i, j, s: (0, j)),
         ],
-        out_specs=pl.BlockSpec((tm, tn), lambda i, j, k: (i, j)),
-        out_shape=jax.ShapeDtypeStruct((m_pad, n), out_dtype),
-        scratch_shapes=[pltpu.VMEM((tm, tn), jnp.float32)],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * m_pad * n * kw,
-            bytes_accessed=m_pad * kw * 2 + kw * n + m_pad * n * 2,
-            transcendentals=0,
-        ),
+        out_specs=pl.BlockSpec((None, tm, tn), lambda i, j, s: (s, i, j)),
+        out_shape=jax.ShapeDtypeStruct((splits, m_pad, n), jnp.float32),
+        compiler_params=pltriton.CompilerParams(
+            num_warps=_NUM_WARPS, num_stages=_NUM_STAGES),
+        backend="triton",
         interpret=interpret,
+        name="quanta_fused_dequant_matmul",
     )(x, codes, scales)
-    return out[:m]
-
-
-# -------------------------------------------- transposed (backward) kernels
-#
-# dx = g (M, N) @ W^T (N, K) with W still PACKED in HBM. Without these,
-# the VJP dequantized each layer's weight to dense bf16 in XLA — and
-# XLA's scheduler hoisted every layer's dequant to the start of the
-# backward, materializing the ENTIRE dense weight tree at once: QLoRA
-# on Llama-2-13B asked for 24.35 GiB of HBM (the dense bf16 size) and
-# OOM'd on the 16 GiB chip even though its packed weights are 6.9 GiB.
-# Dequantizing tile-wise in VMEM, like the forward, removes dense
-# weights from HBM entirely in both directions.
-
-
-def _mm4t_kernel(
-    g_ref, wp_ref, s_lo_ref, s_hi_ref, dlo_ref, dhi_ref, acc_lo, acc_hi,
-    *, codebook, block: int, out_dtype,
-):
-    s = pl.program_id(2)  # N is the innermost (arbitrary) axis
-
-    @pl.when(s == 0)
-    def _():
-        acc_lo[:] = jnp.zeros_like(acc_lo)
-        acc_hi[:] = jnp.zeros_like(acc_hi)
-
-    packed = wp_ref[:].astype(jnp.int32)
-    lo = packed & 0x0F
-    hi = packed >> 4
-    w_lo = _dequant_codes(lo, codebook) * _expand_scales(s_lo_ref[:], block)
-    w_hi = _dequant_codes(hi, codebook) * _expand_scales(s_hi_ref[:], block)
-
-    g = g_ref[:]  # (tm, tn)
-    acc_lo[:] += jax.lax.dot_general(
-        g, w_lo.astype(g.dtype), (((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
-    acc_hi[:] += jax.lax.dot_general(
-        g, w_hi.astype(g.dtype), (((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
-
-    @pl.when(s == pl.num_programs(2) - 1)
-    def _():
-        dlo_ref[:] = acc_lo[:].astype(out_dtype)
-        dhi_ref[:] = acc_hi[:].astype(out_dtype)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("codebook", "block", "tm", "tn", "tk", "interpret",
-                     "out_dtype"),
-)
-def matmul_4bit_t(
-    g: jax.Array,
-    codes_packed: jax.Array,
-    scales: jax.Array,
-    *,
-    codebook: str | None = "nf4a",
-    block: int = 64,
-    tm: int = 256,
-    tn: int = 0,
-    tk: int = 0,
-    interpret: bool = False,
-    out_dtype=None,
-) -> jax.Array:
-    """``g (M, N_pad) @ W^T`` for split_k-packed W. Returns (M, K_pad).
-
-    One grid cell covers a packed-row range and emits BOTH nibble
-    halves' dx columns: dx[:, :K/2] from the low nibbles and
-    dx[:, K/2:] from the high ones (split_k stores rows (k, k + K/2)
-    per byte), accumulated over the N axis.
-    """
-    m, n_dim = g.shape
-    k2, n = codes_packed.shape
-    if n_dim < n:
-        g = jnp.pad(g, ((0, 0), (0, n - n_dim)))
-    elif n_dim != n:
-        raise ValueError(f"g N={n_dim} > codes N={n}")
-    out_dtype = out_dtype or g.dtype
-
-    unit = 8 * block
-    tm = min(tm, _round_up(m, 16))
-    tn = tn or _pick_tile_n(n)
-    cap = tk // 2 if tk else max(unit, (1 << 20) // (2 * tn) * 2)
-    tkp = _pick_tile_k(k2, unit, cap)
-    sb = tkp // block
-
-    m_pad = _round_up(m, tm)
-    if m_pad != m:
-        g = jnp.pad(g, ((0, m_pad - m), (0, 0)))
-
-    grid = (m_pad // tm, k2 // tkp, n // tn)
-    nk_half = k2 // tkp  # scale-row offset of the hi half, in tiles
-
-    kernel = functools.partial(
-        _mm4t_kernel, codebook=codebook, block=block, out_dtype=out_dtype
-    )
-    dlo, dhi = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((tm, tn), lambda i, j, s: (i, s)),     # g
-            pl.BlockSpec((tkp, tn), lambda i, j, s: (j, s)),    # packed
-            pl.BlockSpec((sb, tn), lambda i, j, s: (j, s)),     # lo scales
-            pl.BlockSpec((sb, tn), lambda i, j, s: (j + nk_half, s)),
-        ],
-        out_specs=[
-            pl.BlockSpec((tm, tkp), lambda i, j, s: (i, j)),
-            pl.BlockSpec((tm, tkp), lambda i, j, s: (i, j)),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((m_pad, k2), out_dtype),
-            jax.ShapeDtypeStruct((m_pad, k2), out_dtype),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((tm, tkp), jnp.float32),
-            pltpu.VMEM((tm, tkp), jnp.float32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * m_pad * n * 2 * k2,
-            bytes_accessed=m_pad * n * 2 + k2 * n + m_pad * 2 * k2 * 2,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(g, codes_packed, scales, scales)
-    return jnp.concatenate([dlo, dhi], axis=1)[:m]
-
-
-def _mm8t_kernel(
-    g_ref, w_ref, s_ref, out_ref, acc_ref, *, codebook, block: int,
-    out_dtype,
-):
-    s = pl.program_id(2)
-
-    @pl.when(s == 0)
-    def _():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-
-    w = _dequant_codes(w_ref[:].astype(jnp.int32), codebook)
-    w = w * _expand_scales(s_ref[:], block)
-    acc_ref[:] += jax.lax.dot_general(
-        g_ref[:], w.astype(g_ref.dtype), (((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
-
-    @pl.when(s == pl.num_programs(2) - 1)
-    def _():
-        out_ref[:] = acc_ref[:].astype(out_dtype)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("codebook", "block", "tm", "tn", "tk", "interpret",
-                     "out_dtype"),
-)
-def matmul_8bit_t(
-    g: jax.Array,
-    codes: jax.Array,
-    scales: jax.Array,
-    *,
-    codebook: str | None = None,
-    block: int = 64,
-    tm: int = 256,
-    tn: int = 0,
-    tk: int = 0,
-    interpret: bool = False,
-    out_dtype=None,
-) -> jax.Array:
-    """``g (M, N_pad) @ W^T`` for 8-bit codes. Returns (M, K_pad)."""
-    m, n_dim = g.shape
-    kw, n = codes.shape
-    if n_dim < n:
-        g = jnp.pad(g, ((0, 0), (0, n - n_dim)))
-    elif n_dim != n:
-        raise ValueError(f"g N={n_dim} > codes N={n}")
-    out_dtype = out_dtype or g.dtype
-
-    unit = 8 * block
-    tm = min(tm, _round_up(m, 16))
-    tn = tn or _pick_tile_n(n)
-    cap = tk if tk else max(unit, (1 << 21) // (2 * tn) * 2)
-    tkk = _pick_tile_k(kw, unit, cap)
-    sb = tkk // block
-
-    m_pad = _round_up(m, tm)
-    if m_pad != m:
-        g = jnp.pad(g, ((0, m_pad - m), (0, 0)))
-
-    grid = (m_pad // tm, kw // tkk, n // tn)
-    kernel = functools.partial(
-        _mm8t_kernel, codebook=codebook, block=block, out_dtype=out_dtype
-    )
-    out = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((tm, tn), lambda i, j, s: (i, s)),
-            pl.BlockSpec((tkk, tn), lambda i, j, s: (j, s)),
-            pl.BlockSpec((sb, tn), lambda i, j, s: (j, s)),
-        ],
-        out_specs=pl.BlockSpec((tm, tkk), lambda i, j, s: (i, j)),
-        out_shape=jax.ShapeDtypeStruct((m_pad, kw), out_dtype),
-        scratch_shapes=[pltpu.VMEM((tm, tkk), jnp.float32)],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * m_pad * n * kw,
-            bytes_accessed=m_pad * n * 2 + kw * n + m_pad * kw * 2,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(g, codes, scales)
-    return out[:m]
+    return partial.sum(axis=0)[:m].astype(out_dtype)
 
 
 # ----------------------------------------------------------- QT entry point
@@ -593,30 +195,23 @@ def matmul_8bit_t(
 @functools.partial(jax.custom_vjp, nondiff_argnums=(2,))
 def _mmq(x: jax.Array, qt: QuantizedTensor, opts: tuple) -> jax.Array:
     kw = dict(opts)
+    if not kw.pop("kernel"):
+        return x @ codecs.dequantize_matmul_weight(qt).astype(x.dtype)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    if qt.packed == "split_k":
-        out = matmul_4bit(
-            x2, qt.codes, qt.scale, codebook=qt.codebook, block=qt.block_size,
-            **kw,
-        )
-    elif qt.bits == 8:
-        out = matmul_8bit(
-            x2, qt.codes, qt.scale, codebook=qt.codebook, block=qt.block_size,
-            **kw,
-        )
-    else:
-        raise ValueError(f"unsupported matmul layout: {qt.packed}/{qt.bits}bit")
+    out = fused_matmul(
+        x2, qt.codes, qt.scale, codebook=qt.codebook, block=qt.block_size,
+        packed=qt.packed == "split_k", **kw,
+    )
     if qt.scheme == "affine":
         # zero-point term: x @ expand(zp) == blocksum(x) @ zp — a tiny
-        # (M, K/B) x (K/B, N) GEMM, so the fused kernels need no affine
-        # variant (their unsigned codes*scale part ran above). Padded x
+        # (M, K/B) x (K/B, N) GEMM, so the kernel needs no affine
+        # variant (its unsigned codes*scale part ran above). Padded x
         # columns are zero, so padded blocks contribute nothing.
         b = qt.block_size
         k_pad = qt.zero_point.shape[0] * b
-        xp = x2.astype(jnp.float32)
-        if xp.shape[1] < k_pad:
-            xp = jnp.pad(xp, ((0, 0), (0, k_pad - xp.shape[1])))
+        xp = jnp.pad(x2.astype(jnp.float32),
+                     ((0, 0), (0, k_pad - x2.shape[1])))
         xb = xp.reshape(xp.shape[0], k_pad // b, b).sum(axis=2)
         out = out + (xb @ qt.zero_point).astype(out.dtype)
     out = out[:, : qt.shape[1]]  # drop N padding
@@ -629,51 +224,41 @@ def _mmq_fwd(x, qt, opts):
 
 def _mmq_bwd(opts, res, g):
     # Quantized weights are frozen codes (QLoRA semantics): only dx flows.
-    # dx = g @ W^T runs through the TRANSPOSED fused kernels — W is
-    # dequantized tile-wise in VMEM exactly like the forward. The old
-    # XLA-path backward (dequantize to dense bf16, then GEMM) let XLA's
-    # scheduler hoist every layer's dequant to the start of the backward
-    # and materialize the whole dense tree: 13B QLoRA demanded 24.35 GiB
-    # (the dense size) and OOM'd a 16 GiB chip.
-    kw = dict(opts)
-    interpret = kw.get("interpret", False)
+    # dx = g @ W^T runs at training M, which is compute-bound: the plain
+    # dequant + GEMM is the right engine there. Only the packed weight is
+    # kept for the backward and the dense copy is rebuilt here. The
+    # barrier ties that rebuild to g: without it XLA merges it with the
+    # forward's dequant (CSE) and keeps every layer's dense weight alive
+    # from the forward to the backward.
     x, qt = res
-    lead = g.shape[:-1]
-    g2 = g.reshape(-1, g.shape[-1])
-    n_pad = qt.codes.shape[-1]
-    if g2.shape[-1] < n_pad:  # N padding the fwd sliced off
-        g2 = jnp.pad(g2, ((0, 0), (0, n_pad - g2.shape[-1])))
-    if qt.packed == "split_k":
-        dx = matmul_4bit_t(
-            g2, qt.codes, qt.scale, codebook=qt.codebook,
-            block=qt.block_size, interpret=interpret,
-        )
-    else:
-        dx = matmul_8bit_t(
-            g2, qt.codes, qt.scale, codebook=qt.codebook,
-            block=qt.block_size, interpret=interpret,
-        )
-    if qt.scheme == "affine":
-        # zp term of W^T: dx_zp[m, k] = (g @ zp^T)[m, block(k)]
-        gz = g2.astype(jnp.float32) @ qt.zero_point.T  # (M, K/B)
-        gz = jnp.repeat(gz, qt.block_size, axis=1)
-        dx = dx + gz.astype(dx.dtype)
-    dx = dx[:, : x.shape[-1]].astype(x.dtype)  # drop K padding
-    return (dx.reshape(*lead, -1),
-            jax.tree_util.tree_map(jnp.zeros_like, qt))
+    _, qt = jax.lax.optimization_barrier((g, qt))
+    w = codecs.dequantize_matmul_weight(qt).astype(g.dtype)
+    dx = (g @ w.T).astype(x.dtype)
+    return dx, jax.tree_util.tree_map(jnp.zeros_like, qt)
 
 
 _mmq.defvjp(_mmq_fwd, _mmq_bwd)
 
 
 def matmul_quantized(
-    x: jax.Array, qt: QuantizedTensor, *, interpret: bool = False, **kw
+    x: jax.Array, qt: QuantizedTensor, *, kernel: bool = True,
+    interpret: bool = False, out_dtype=None
 ) -> jax.Array:
-    """Dispatch ``x @ dequant(qt)`` to the right fused kernel.
+    """``x @ dequant(qt)`` through the fused kernel, or with
+    ``kernel=False`` through the plain dequant + matmul.
 
-    ``qt`` must be in matmul layout (from core.quantize_matmul_weight).
-    Accepts x of any leading batch shape; contracts over the last axis.
-    Differentiable in ``x`` (custom VJP; weight codes are frozen).
+    ``qt`` must be in matmul layout (from core.quantize_matmul_weight), and
+    pass kernel_supports for the kernel. Accepts x of any leading batch
+    shape; contracts over the last axis. Differentiable in ``x`` (custom
+    VJP; weight codes are frozen). ``out_dtype`` is the kernel's output
+    dtype (x.dtype by default).
     """
-    opts = tuple(sorted({**kw, "interpret": interpret}.items()))
+    if kernel and not kernel_supports(qt):
+        raise ValueError(
+            f"no fused kernel for {qt.codebook or qt.scheme} "
+            f"block={qt.block_size} codes {qt.codes.shape}")
+    opts = (("kernel", False),)
+    if kernel:
+        opts = (("interpret", interpret), ("kernel", True),
+                ("out_dtype", out_dtype))
     return _mmq(x, qt, opts)

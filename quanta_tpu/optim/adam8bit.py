@@ -3,7 +3,7 @@
 The reference's ``Adam8bit`` declares blockwise-quantized optimizer state
 (`block_wise=True`, `quantize_momentum`, `quantize_variance`) but steps in
 fp32 (/root/reference/Quanta/optim/adam.py:25-56, placeholder note at :95).
-This is the real thing, TPU-style: the state pytree holds int8/uint8 codes
+This is the real thing: the state pytree holds int8/uint8 codes
 plus per-block scales; each step dequantizes, applies the Adam update, and
 requantizes per block — all fused by XLA into one elementwise pass per
 leaf (SURVEY.md §7 hard part 4: no fp32 materialization of the full state
@@ -20,7 +20,6 @@ Quantization choices (bitsandbytes-style dynamic blockwise):
 
 from __future__ import annotations
 
-import functools
 from typing import Any, NamedTuple, Optional
 
 import jax
@@ -92,19 +91,13 @@ def adam8bit(
     eps: float = 1e-8,
     weight_decay: float = 0.0,
     mask: Optional[Any] = None,
-    use_kernel: Optional[bool] = None,
-    interpret: bool = False,
 ) -> optax.GradientTransformation:
     """Blockwise 8-bit Adam(W). Drop-in optax transform.
 
     ``weight_decay > 0`` gives AdamW (decoupled decay, applied via the
     update like optax.adamw). ``mask``: optional pytree/callable selecting
     leaves to optimize (e.g. quanta_tpu.nn.lora_params_filter for QLoRA).
-    ``use_kernel``: route the fused Pallas update
-    (quanta_tpu.ops.adam8bit) — None = auto (TPU and leaf >= 16K params),
-    True/False force. The kernel is numerically identical; it fuses
-    dequant -> update -> requant in one VMEM pass so fp32 moments never
-    round-trip HBM.
+    XLA fuses each leaf's dequant -> update -> requant chain.
     """
 
     def init_fn(params):
@@ -128,32 +121,16 @@ def adam8bit(
         )
 
         def leaf_update(g, q, p):
-            kern = use_kernel
-            if kern is None:
-                kern = (
-                    jax.devices()[0].platform == "tpu" and g.size >= 16384
-                )
-            if kern:
-                from quanta_tpu.ops.adam8bit import adam8bit_update
-
-                gb, n = _blockify(g)
-                updb, mc, ms, vc, vs = adam8bit_update(
-                    gb, q.m_codes, q.m_scale, q.v_codes, q.v_scale,
-                    lr, bc1, bc2, b1=b1, b2=b2, eps=eps,
-                    interpret=interpret,
-                )
-                upd = updb.reshape(-1)[:n].reshape(g.shape)
-            else:
-                g32 = g.astype(jnp.float32)
-                m = _deq_m(q.m_codes, q.m_scale, g.shape)
-                v = _deq_v(q.v_codes, q.v_scale, g.shape)
-                m = b1 * m + (1.0 - b1) * g32
-                v = b2 * v + (1.0 - b2) * g32 * g32
-                m_hat = m / bc1
-                v_hat = v / bc2
-                upd = -lr * m_hat / (jnp.sqrt(v_hat) + eps)
-                mc, ms = _quant_m(m)
-                vc, vs = _quant_v(v)
+            g32 = g.astype(jnp.float32)
+            m = _deq_m(q.m_codes, q.m_scale, g.shape)
+            v = _deq_v(q.v_codes, q.v_scale, g.shape)
+            m = b1 * m + (1.0 - b1) * g32
+            v = b2 * v + (1.0 - b2) * g32 * g32
+            m_hat = m / bc1
+            v_hat = v / bc2
+            upd = -lr * m_hat / (jnp.sqrt(v_hat) + eps)
+            mc, ms = _quant_m(m)
+            vc, vs = _quant_v(v)
             if weight_decay and p is not None:
                 upd = upd - lr * weight_decay * p.astype(jnp.float32)
             return upd.astype(g.dtype), _QState(mc, ms, vc, vs)

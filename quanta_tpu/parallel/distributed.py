@@ -1,14 +1,14 @@
 """Multi-host scaffolding: process init + (dcn, data, model) hybrid mesh.
 
 The reference has no distributed layer (SURVEY.md §2.5; roadmap item
-/root/reference/TODO.md:50). The TPU-native multi-host story is:
+/root/reference/TODO.md:50). The multi-host story is:
 
   - one JAX process per host, joined with ``jax.distributed.initialize``
     (:func:`initialize` wraps it with env autodetection and makes repeat
     calls safe);
   - a hybrid mesh whose leading 'dcn' axis maps to the slow inter-host
-    network and whose 'data'/'model' axes stay inside a host's ICI
-    domain (:func:`make_host_mesh` uses
+    network and whose 'data'/'model' axes stay inside a host's fast
+    device interconnect (NVLink within a GPU host) (:func:`make_host_mesh` uses
     ``mesh_utils.create_hybrid_device_mesh`` on real multi-process
     topologies and a plain reshape on single-process/virtual ones, so the
     same code path is testable on the 8-virtual-CPU mesh as 2 hosts x 4
@@ -17,16 +17,16 @@ The reference has no distributed layer (SURVEY.md §2.5; roadmap item
     (:func:`host_llama_param_specs` replicates weights across hosts and
     tensor-parallelizes them inside a host; :func:`host_cache_specs`
     shards the KV cache batch over ('dcn','data') and heads over
-    'model'), so every heavy collective (TP psum/all-gather) rides ICI
+    'model'), so every heavy collective (TP psum/all-gather) stays in a
+    host
     and the only DCN traffic is data-parallel gradient psum (training)
     or nothing at all (serving — each host's continuous-batching engine
     feeds its own batch rows).
 
 Serving across hosts = data parallelism over 'dcn': each host runs its
 own Engine replica on its process-local batch slice; throughput scales
-with hosts because no per-token collective crosses DCN. The scaling
-sweep in BASELINE.md config 5 (v5e-16, 2 hosts) is this layout with
-tp=4 per host.
+with hosts because no per-token collective crosses DCN. Four GPUs per
+host with tp=4 is this layout.
 """
 
 from __future__ import annotations
@@ -59,8 +59,8 @@ def initialize(
 
     With no arguments: if the standard cluster env vars are set
     (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID, or a
-    TPU pod environment where ``jax.distributed.initialize()`` can
-    autodetect), join; otherwise stay single-process. Safe to call more
+    cluster manager ``jax.distributed.initialize()`` can autodetect),
+    join; otherwise stay single-process. Safe to call more
     than once (later calls are no-ops), so library entry points can call
     it unconditionally.
     """

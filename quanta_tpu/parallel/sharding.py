@@ -2,7 +2,7 @@
 
 No distributed layer exists in the reference (SURVEY.md §2.5 — exhaustive:
 no torch.distributed/NCCL anywhere; roadmap item /root/reference/TODO.md:50).
-This is the TPU-native realization: a ('data', 'model') mesh, Megatron-
+This is the realization here: a ('data', 'model') mesh, Megatron-
 style tensor-parallel PartitionSpecs for the Llama decoder, and
 quantization-aware sharding where packed codes *and their block scales*
 shard together (SURVEY.md §7 hard part 3).

@@ -40,6 +40,8 @@ from jax.sharding import Mesh, PartitionSpec as P
 from quanta_tpu.core import codecs, packing
 from quanta_tpu.core.qtensor import QuantizedTensor
 from quanta_tpu.models.llama import LlamaConfig, _attention, _rope, rms_norm
+from quanta_tpu.nn.linear import linear
+from quanta_tpu.ops.matmul import MIN_TILE
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -213,19 +215,14 @@ def dequantize_tp(sq: ShardedQuant) -> jax.Array:
 # ------------------------------------------------------------- tp forward
 
 
-def _local_linear(x, sq: ShardedQuant, use_kernel: bool,
+def _local_linear(x, sq: ShardedQuant, use_kernel=None,
                   interpret: bool = False):
     """Local-shard matmul inside shard_map (codes arrive with tp dim 1)."""
     qt = sq.local_qt(sq.codes[0], sq.scale[0])
-    if use_kernel:
-        from quanta_tpu.ops.matmul import matmul_quantized
-
-        return matmul_quantized(x, qt, interpret=interpret)
-    w = codecs.dequantize_matmul_weight(qt).astype(x.dtype)
-    return x @ w
+    return linear(x, qt, use_kernel=use_kernel, interpret=interpret)
 
 
-def _row_parallel(x, sq: ShardedQuant, use_kernel: bool, n_chunks: int = 2,
+def _row_parallel(x, sq: ShardedQuant, use_kernel=None, n_chunks: int = 2,
                   interpret: bool = False):
     """Row-parallel linear: local partial GEMM + chunked psum.
 
@@ -234,13 +231,9 @@ def _row_parallel(x, sq: ShardedQuant, use_kernel: bool, n_chunks: int = 2,
     async scheduler overlaps communication with dequant-matmul compute.
     """
     n = sq.shape[1]
-    # chunk width must satisfy the fused kernel's N tiling (N % 128 == 0,
-    # ops.matmul._pick_tile_n) — on kernel-incompatible widths fall back
-    # to a single psum rather than crash (e.g. N=128 with n_chunks=2
-    # would produce 64-wide chunks)
-    while n_chunks > 1 and (
-        n % n_chunks or (use_kernel and (n // n_chunks) % 128)
-    ):
+    # a chunk narrower than the kernel's smallest N tile, or one that
+    # does not divide N, falls back to fewer chunks rather than crash
+    while n_chunks > 1 and (n % n_chunks or (n // n_chunks) % MIN_TILE):
         n_chunks -= 1
     step = n // n_chunks
     outs = []
@@ -257,12 +250,7 @@ def _row_parallel(x, sq: ShardedQuant, use_kernel: bool, n_chunks: int = 2,
             block_size=sq.block_size,
             packed="split_k" if sq.bits == 4 else "none",
         )
-        if use_kernel:
-            from quanta_tpu.ops.matmul import matmul_quantized
-
-            y = matmul_quantized(x, qt_c, interpret=interpret)
-        else:
-            y = x @ codecs.dequantize_matmul_weight(qt_c).astype(x.dtype)
+        y = linear(x, qt_c, use_kernel=use_kernel, interpret=interpret)
         outs.append(jax.lax.psum(y, axis_name="model"))
     return jnp.concatenate(outs, axis=-1)
 
@@ -326,7 +314,7 @@ def tp_llama_forward(
     cfg: LlamaConfig,
     mesh: Mesh,
     *,
-    use_kernel: bool = False,
+    use_kernel=None,
     interpret: bool = False,
 ):
     """Causal scoring forward under manual shard_map TP.
@@ -413,7 +401,7 @@ def _cache_specs_tp():
 
 
 def _fwd_cached_local(p, toks, cache, cfg: LlamaConfig, tp: int,
-                      use_kernel: bool, interpret: bool = False):
+                      use_kernel=None, interpret: bool = False):
     """Per-device cached forward body (runs inside shard_map).
 
     Mirrors models.llama.forward's cache path with local head counts:
@@ -486,7 +474,7 @@ def tp_llama_forward_cached(
     mesh: Mesh,
     cache: dict,
     *,
-    use_kernel: bool = False,
+    use_kernel=None,
     interpret: bool = False,
 ):
     """One cached forward (prefill when S>1, decode when S==1) under
@@ -510,7 +498,7 @@ def tp_greedy_decode(
     mesh: Mesh,
     max_new_tokens: int = 32,
     *,
-    use_kernel: bool = False,
+    use_kernel=None,
     interpret: bool = False,
 ) -> jax.Array:
     """Greedy generation entirely under manual shard_map TP: one shard_map

@@ -2,7 +2,7 @@
 
 The reference has no serving layer at all (SURVEY.md §2.5; its roadmap
 stops at module-level quantization). This realizes the north-star serving
-requirement (BASELINE.json config 3: continuous batching) the TPU way:
+requirement (BASELINE.json config 3: continuous batching):
 
   - one fixed-size page pool per model, shaped
     ``(n_layers, n_pages, page_size, n_kv_heads, head_dim)`` — static
@@ -12,7 +12,7 @@ requirement (BASELINE.json config 3: continuous batching) the TPU way:
     host data re-fed every step (tiny), so page allocation is host-side Python
     with zero recompilation;
   - memory is allocated lazily page-by-page as sequences grow, and freed
-    when a request completes — HBM use tracks the *actual* token count,
+    when a request completes — device memory use tracks the *actual* token count,
     not n_slots * max_seq_len.
 
 Sharding: pages carry the same head-axis TP sharding as the contiguous
@@ -41,8 +41,8 @@ def init_pool(
 
     kv_quant=True stores K/V as int8 codes with one f32 absmax scale per
     (token, kv-head) vector (SURVEY §5 "optionally-quantized KV cache"):
-    ~1.9x less KV HBM at head_dim 64 (8 + 32/64 bits vs 16 per element),
-    and the decode step's pool read — its HBM floor — shrinks the same
+    ~1.9x less KV memory at head_dim 64 (8 + 32/64 bits vs 16 per element),
+    and the decode step's pool read — its memory-bound floor — shrinks the same
     factor. Dequantization happens on the gathered (bucketed) slice only.
     """
     shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
@@ -62,33 +62,11 @@ def is_quantized(pool: dict) -> bool:
     return "k_scale" in pool
 
 
-def quantize_kv(x: jax.Array, *, use_kernel=None) -> Tuple[jax.Array, jax.Array]:
+def quantize_kv(x: jax.Array) -> Tuple[jax.Array, jax.Array]:
     """Symmetric int8 per-vector quantization over the trailing head_dim:
-    x (..., hd) -> (codes int8 (..., hd), scale f32 (...)).
-
-    Large (prefill-scale) inputs route through the blockwise Pallas
-    quantize kernel (ops/quantize.quantize_blockwise with block ==
-    head_dim — each (token, head) vector is one block): measured 4.1 vs
-    10.3 us at a 2048-token TinyLlama prefill write. Decode-window
-    writes are too small to measure and keep the XLA path, which fuses
-    into the surrounding program.
+    x (..., hd) -> (codes int8 (..., hd), scale f32 (...)). Plain XLA: the
+    absmax and round fuse into the surrounding prefill or decode program.
     """
-    hd = x.shape[-1]
-    if use_kernel is None:
-        use_kernel = (
-            jax.default_backend() == "tpu"
-            and x.size >= (1 << 18)
-            and hd % 8 == 0
-        )
-    if use_kernel:
-        from quanta_tpu.ops.quantize import quantize_blockwise
-
-        codes, scale = quantize_blockwise(
-            x.astype(jnp.float32), fmt="int8_sym", block=hd,
-            interpret=jax.default_backend() != "tpu",
-        )
-        return (codes.reshape(x.shape),
-                scale.reshape(x.shape[:-1]).astype(jnp.float32))
     xf = x.astype(jnp.float32)
     scale = jnp.max(jnp.abs(xf), axis=-1) / 127.0 + 1e-12
     codes = jnp.round(xf / scale[..., None]).astype(jnp.int8)
@@ -104,7 +82,7 @@ def gather_layer(pool_l: jax.Array, page_table: jax.Array) -> jax.Array:
     (n_slots, max_pages*page, ...): each slot's logical KV stream.
     Works for both the KV arrays (..., nkv, hd) and their scales (..., nkv).
 
-    The caller controls the HBM cost here: reads scale with the page_table
+    The caller controls the memory traffic here: reads scale with the page_table
     WIDTH, so passing a column-sliced table (engine decode buckets) reads
     only the pages active sequences can actually occupy, not
     max_seq_len/page_size pages per slot."""
@@ -148,16 +126,14 @@ def write_token_layer(
     The decode step must use this (not a per-layer list + jnp.stack):
     scattering into the donated full array lowers to an in-place
     dynamic-update-scatter, while rebuilding the stack copies the whole
-    pool every step — measured 36 -> 78 ms per 8-token decode window when
-    the pool grows 257 -> 1025 pages, i.e. the copy, not the compute, was
-    the serving engine's real bottleneck.
+    pool every step, so decode time would grow with pool capacity instead
+    of active tokens.
 
     unique_indices: active slots each own their page (the allocator never
     double-books), so their targets are unique. Inactive slots all map to
     (null page 0, offset 0) — duplicate targets, but the null page is
     masked out of every attention read, so whichever write wins is
-    irrelevant. The hint saves the scatter's combiner pass (~14% off the
-    8-token window at 257 pages, measured)."""
+    irrelevant. The hint saves the scatter's combiner pass."""
     page_idx = jnp.take_along_axis(
         page_table, (positions // page_size)[:, None], axis=1
     )[:, 0]
@@ -173,7 +149,7 @@ def write_prefill(
 
     pages: (n_prompt_pages,) int32 physical page ids.
     k_seq/v_seq: (n_layers, S_pad, nkv, hd) with S_pad == len(pages)*page.
-    The pool is donated (in-place scatter in HBM). For a quantized pool the
+    The pool is donated (in-place scatter in device memory). For a quantized pool the
     prompt KV is int8-quantized per (token, head) vector on the way in.
     """
     n_pages = pages.shape[0]

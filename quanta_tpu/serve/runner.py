@@ -178,7 +178,7 @@ def decode_step(
     tokens: (n_slots,) int32 last sampled token per slot.
 
     Returns (logits (n_slots, V), updated pool). The pool argument is
-    donated: the update is in-place in HBM.
+    donated: the update is in-place in device memory.
     """
     b = tokens.shape[0]
     active = positions >= 0
@@ -343,30 +343,28 @@ def decode_multi_step(
 ):
     """``n_steps`` fused decode+sample steps in ONE device program.
 
-    Amortizes per-dispatch host latency n_steps-fold: the engine pays one
-    dispatch + one token readback per WINDOW instead of per token (the
-    multi-step scheduling of TPU serving stacks; on a high-latency
-    control link this is the difference between RTT-bound and
-    compute-bound serving). The caller pre-allocates pages covering
-    positions ``seq_len .. seq_len+n_steps-1`` and guarantees every
-    dispatched slot has >= n_steps of output budget; EOS inside the
-    window wastes the tail steps for that slot (the tokens are dropped on
-    the host — the optimistic-dispatch safety argument in engine.py
-    covers the stale KV writes).
+    Amortizes per-dispatch host cost n_steps-fold: the engine pays one
+    dispatch + one token readback per WINDOW instead of per token. The
+    caller pre-allocates pages covering positions
+    ``seq_len .. seq_len+n_steps-1`` and guarantees every dispatched slot
+    has >= n_steps of output budget; EOS inside the window wastes the
+    tail steps for that slot (the tokens are dropped on the host — the
+    optimistic-dispatch safety argument in engine.py covers the stale KV
+    writes).
 
     The pool is touched exactly TWICE per window, not per step: one
     page-table gather per layer at window start (frozen KV state), and
     one scatter per layer at window end writing all n_steps fresh tokens.
     In between, each step's attention reads the frozen gather plus a
-    small in-registers side buffer of the window's own tokens
-    (_attention_pool_side). Two reasons, both measured on the TPU:
+    small side buffer of the window's own tokens (_attention_pool_side).
+    Two reasons:
       * a lax.scan (or even an unrolled chain) of per-step
         scatter-then-gather on the pool defeats XLA's in-place buffer
-        aliasing — every step copied the ENTIRE pool, so decode time
-        scaled with pool capacity (36 -> 78 ms/window at 257 -> 1025
-        pages) instead of active tokens;
-      * the gather (the decode HBM floor) is paid once per window instead
-        of once per token — an n_steps-fold reduction of paging traffic.
+        aliasing — every step would copy the ENTIRE pool, so decode time
+        would scale with pool capacity instead of active tokens;
+      * the gather (the decode memory-traffic floor) is paid once per
+        window instead of once per token — an n_steps-fold reduction of
+        paging traffic.
 
     Returns (tokens_seq (n_steps, n_slots) i32, next_positions, next_key,
     updated pool).

@@ -1,8 +1,8 @@
 """QLoRA fine-tuning driver: frozen quantized base + bf16 LoRA + 8-bit Adam.
 
 Realizes north-star config 4 (BASELINE.md): the base model is NF4
-QuantizedTensor leaves (never dequantized to HBM — forward runs the fused
-kernel), adapters are the only trainable leaves, optimizer state is
+QuantizedTensor leaves (decode-size products run the fused kernel; larger
+ones dequantize one layer at a time), adapters are the only trainable leaves, optimizer state is
 blockwise 8-bit. The reference only roadmaps this (TODO.md:47-50).
 """
 

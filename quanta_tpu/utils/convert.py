@@ -3,8 +3,8 @@
 Parity with the reference's ``convert_precision`` family
 (`/root/reference/Quanta/utils/utils.py:216-307`): conversion is a
 dequantize -> requantize round trip through float, producing a new
-QuantizedTensor under the target settings. The hardware-target table
-(:309-335) gains a ``tpu`` row — the native target of this framework.
+QuantizedTensor under the target settings, and the hardware-target
+table (:309-335).
 """
 
 from __future__ import annotations
@@ -69,11 +69,11 @@ def transcode_codebook(
 
     Why: checkpoints quantized by bitsandbytes/QLoRA arrive as exact NF4
     (/root/reference/Quanta/functional/quantization.py:105-110), whose
-    16-entry table dequant is VPU-floor-bound on TPU (0.64x bf16 decode,
-    BENCH_r03); nf4a dequantizes in 3 fused multiply-adds (1.19x bf16).
-    This converter lets imported NF4 checkpoints opt into nf4a-speed
-    serving; the added quantization error is one extra nearest-level
-    rounding, measured in the accuracy bench (docs/ACCURACY.md).
+    16-entry table dequant is a select tree per element; nf4a dequantizes
+    in 3 fused multiply-adds. This converter lets imported NF4
+    checkpoints opt into nf4a serving; the added quantization error is
+    one extra nearest-level rounding, measured in the accuracy bench
+    (docs/ACCURACY.md).
     """
     if qt.codebook is None:
         raise ValueError("transcode_codebook needs a codebook-format tensor")
@@ -126,10 +126,8 @@ def convert_4bit_to_8bit(qt: QuantizedTensor, **kw) -> QuantizedTensor:
     return convert_precision(qt, bits=8, **kw)
 
 
-# Static hardware table (reference utils.py:321-326, plus the tpu row).
+# Static hardware table (reference utils.py:321-326).
 HARDWARE_TARGETS = {
-    "tpu": QuantConfig(bits=4, scheme="codebook", codebook="nf4",
-                       block_size=64, pack=True),
     "cpu": QuantConfig(bits=8, scheme="affine", block_size=0),
     "gpu": QuantConfig(bits=8, scheme="symmetric", block_size=64),
     "mobile": QuantConfig(bits=4, scheme="codebook", codebook="nf4",
@@ -139,7 +137,7 @@ HARDWARE_TARGETS = {
 
 
 def optimize_for_target_hardware(
-    qt: QuantizedTensor, target: str = "tpu"
+    qt: QuantizedTensor, target: str = "gpu"
 ) -> QuantizedTensor:
     """Requantize for a named hardware target (utils.py:309-335 parity)."""
     if target not in HARDWARE_TARGETS:

@@ -1,13 +1,16 @@
-"""Flash-attention Pallas kernel vs llama._attention oracle (interpret
-mode on CPU; same checks run compiled on TPU via the prefill path)."""
+"""The attention route (jax.nn.dot_product_attention: cuDNN on the GPU)
+vs the llama._attention oracle. On the CPU the route runs with
+implementation="xla", forward and gradient; the cuDNN compile is compared
+on the card by chip_smoke.py and the `gpu`-marked tests."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from quanta_tpu import ops
 from quanta_tpu.models import llama
-from quanta_tpu.ops.attention import flash_attention
+from quanta_tpu.ops.attention import causal_attention
 
 
 def _oracle(q, k, v, q_start, kv_len):
@@ -25,41 +28,55 @@ def _rand(shape, seed, dtype=jnp.float32):
     return jax.random.normal(jax.random.PRNGKey(seed), shape, dtype)
 
 
+def _route(q, k, v, kv_len):
+    return causal_attention(q, k, v, kv_len, implementation="xla")
+
+
+@pytest.fixture
+def route_on_cpu(monkeypatch):
+    """Make the policy pick the route (as "xla") wherever it would pick
+    cuDNN on the GPU, at any length and dtype."""
+    monkeypatch.setattr(
+        ops, "attention_impl",
+        lambda s, dtype, from_zero: "xla" if from_zero else None)
+
+
 @pytest.mark.parametrize(
-    "b,s,t,nh,nkv,hd,tq,tk",
+    "b,s,t,nh,nkv,hd",
     [
-        (2, 64, 64, 4, 2, 64, 32, 32),     # GQA, self-attention
-        (1, 128, 128, 4, 4, 64, 128, 128), # MHA, one tile
-        (2, 48, 80, 4, 2, 64, 32, 32),     # ragged: padded q AND kv tiles
+        (2, 64, 64, 4, 2, 64),     # GQA, self-attention
+        (1, 128, 128, 4, 4, 64),   # MHA
+        (2, 48, 80, 4, 2, 64),     # kv longer than q, valid prefix = s
     ],
 )
-def test_flash_matches_oracle(b, s, t, nh, nkv, hd, tq, tk):
+def test_flash_matches_oracle(b, s, t, nh, nkv, hd):
     q = _rand((b, s, nh, hd), 0)
     k = _rand((b, t, nkv, hd), 1)
     v = _rand((b, t, nkv, hd), 2)
     q_start = jnp.zeros((b,), jnp.int32)
     kv_len = jnp.full((b,), s, jnp.int32)  # kv valid prefix = s rows
     want = _oracle(q, k, v, q_start, kv_len)
-    got = flash_attention(q, k, v, q_start, kv_len, tq=tq, tk=tk,
-                          interpret=True)
+    got = _route(q, k, v, kv_len)
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                rtol=2e-5, atol=2e-5)
 
 
 def test_flash_cached_prefill_offset():
-    """Prefill at a cache offset: queries start at q_start > 0 and attend
-    the full valid prefix (the llama.forward cache path's geometry)."""
-    b, s, t, nh, nkv, hd = 2, 32, 96, 8, 2, 64
-    q = _rand((b, s, nh, hd), 3)
-    k = _rand((b, t, nkv, hd), 4)
-    v = _rand((b, t, nkv, hd), 5)
-    q_start = jnp.asarray([16, 40], jnp.int32)
-    kv_len = q_start + s
-    want = _oracle(q, k, v, q_start, kv_len)
-    got = flash_attention(q, k, v, q_start, kv_len, tq=16, tk=32,
-                          interpret=True)
+    """Prefill at a cache offset stays on the plain attention: a prompt
+    fed as two chunks through the cache gives the logits of one uncached
+    forward, and the policy never sends an offset chunk to the route."""
+    assert ops.attention_impl(4096, jnp.bfloat16, from_zero=False) is None
+    cfg = llama.LlamaConfig.tiny(dtype=jnp.float32)
+    params = llama.init_params(jax.random.PRNGKey(0), cfg)
+    toks = jax.random.randint(jax.random.PRNGKey(1), (2, 48), 0,
+                              cfg.vocab_size)
+    want, _ = llama.forward(params, toks, cfg)
+    cache = llama.init_cache(cfg, 2, max_len=64)
+    lo_a, cache = llama.forward(params, toks[:, :16], cfg, cache=cache)
+    lo_b, _ = llama.forward(params, toks[:, 16:], cfg, cache=cache)
+    got = jnp.concatenate([lo_a, lo_b], axis=1)
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                               rtol=2e-5, atol=2e-5)
+                               rtol=2e-4, atol=2e-4)
 
 
 def test_flash_bf16():
@@ -70,8 +87,7 @@ def test_flash_bf16():
     q_start = jnp.zeros((b,), jnp.int32)
     kv_len = jnp.full((b,), s, jnp.int32)
     want = _oracle(q, k, v, q_start, kv_len)
-    got = flash_attention(q, k, v, q_start, kv_len, tq=32, tk=32,
-                          interpret=True)
+    got = _route(q, k, v, None)
     assert got.dtype == jnp.bfloat16
     np.testing.assert_allclose(
         np.asarray(got, np.float32), np.asarray(want, np.float32),
@@ -79,45 +95,91 @@ def test_flash_bf16():
     )
 
 
-def test_flash_in_llama_forward():
-    """llama.forward with use_flash routes prefill attention through the
-    kernel and matches the XLA-attention forward."""
+def test_flash_in_llama_forward(route_on_cpu):
+    """llama.forward sends from-zero multi-token attention through the
+    route (uncached, and a prefill that fills its whole cache) and
+    matches the plain-attention forward."""
     cfg = llama.LlamaConfig.tiny(dtype=jnp.float32)
     params = llama.init_params(jax.random.PRNGKey(0), cfg)
     toks = jax.random.randint(jax.random.PRNGKey(1), (2, 64), 0,
                               cfg.vocab_size)
-    want, _ = llama.forward(params, toks, cfg, use_kernel=False)
-    got, _ = llama.forward(params, toks, cfg, use_kernel=False,
-                           use_flash=True, interpret=True)
+    calls = []
+    real = llama.causal_attention
+
+    def spy(*a, **kw):
+        calls.append(kw["implementation"])
+        return real(*a, **kw)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(llama, "causal_attention", spy)
+        got, _ = llama.forward(params, toks, cfg)
+        cache = llama.init_cache(cfg, 2, max_len=64)
+        got_c, _ = llama.forward(params, toks, cfg, cache=cache)
+    assert calls == ["xla"] * (2 * cfg.n_layers), calls
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ops, "attention_impl", lambda s, dtype, from_zero: None)
+        want, _ = llama.forward(params, toks, cfg)
+        cache = llama.init_cache(cfg, 2, max_len=64)
+        want_c, _ = llama.forward(params, toks, cfg, cache=cache)
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                rtol=2e-4, atol=2e-4)
-
-    # and through the cache (prefill at offset 0 with padded capacity)
-    cache = llama.init_cache(cfg, 2, max_len=96)
-    want_c, _ = llama.forward(params, toks, cfg, cache=cache,
-                              use_kernel=False)
-    cache = llama.init_cache(cfg, 2, max_len=96)
-    got_c, _ = llama.forward(params, toks, cfg, cache=cache,
-                             use_kernel=False, use_flash=True,
-                             interpret=True)
     np.testing.assert_allclose(np.asarray(got_c), np.asarray(want_c),
                                rtol=2e-4, atol=2e-4)
+
+
+def test_flash_in_greedy_prefill(route_on_cpu):
+    """greedy_decode's prefill writes a cache longer than the prompt but
+    empty before it: it takes the route over the prompt's own keys, its
+    decode steps stay plain, and the tokens and cache equal the
+    all-plain decode's (the cache to round-off)."""
+    cfg = llama.LlamaConfig.tiny(dtype=jnp.float32)
+    params = llama.init_params(jax.random.PRNGKey(0), cfg)
+    toks = jax.random.randint(jax.random.PRNGKey(2), (2, 40), 0,
+                              cfg.vocab_size)
+    calls = []
+    real = llama.causal_attention
+
+    def spy(*a, **kw):
+        calls.append((a[1].shape[1], kw["implementation"]))
+        return real(*a, **kw)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(llama, "causal_attention", spy)
+        got = llama.greedy_decode(params, toks, cfg, max_new_tokens=4)
+        cache = llama.init_cache(cfg, 2, max_len=44)
+        lg, cache = llama.forward(params, toks, cfg, cache=cache,
+                                  cache_empty=True)
+    # prefill only (one trace each), over the 40 prompt keys
+    assert calls == [(40, "xla")] * (2 * cfg.n_layers), calls
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ops, "attention_impl", lambda s, dtype, from_zero: None)
+        want = llama.greedy_decode(params, toks, cfg, max_new_tokens=4)
+        cache_w = llama.init_cache(cfg, 2, max_len=44)
+        lg_w, cache_w = llama.forward(params, toks, cfg, cache=cache_w)
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    np.testing.assert_allclose(np.asarray(lg), np.asarray(lg_w),
+                               rtol=2e-4, atol=2e-4)
+    np.testing.assert_array_equal(np.asarray(cache["pos"]),
+                                  np.asarray(cache_w["pos"]))
+    for name in ("k", "v"):  # later layers see the route's rounding
+        np.testing.assert_allclose(np.asarray(cache[name]),
+                                   np.asarray(cache_w[name]),
+                                   rtol=2e-4, atol=2e-4)
 
 
 # ------------------------------------------------------------- backward
 
 
 @pytest.mark.parametrize(
-    "b,s,t,nh,nkv,hd,tq,tk",
+    "b,s,t,nh,nkv,hd",
     [
-        (2, 64, 64, 4, 2, 64, 32, 32),     # GQA, multiple tiles each way
-        (1, 128, 128, 4, 4, 64, 128, 128), # MHA, one tile
-        (2, 48, 80, 4, 2, 64, 32, 32),     # ragged: padded q AND kv tiles
+        (2, 64, 64, 4, 2, 64),     # GQA
+        (1, 128, 128, 4, 4, 64),   # MHA
+        (2, 48, 80, 4, 2, 64),     # kv longer than q, valid prefix = s
     ],
 )
-def test_flash_grad_matches_oracle(b, s, t, nh, nkv, hd, tq, tk):
-    """jax.grad through the kernel == jax.grad through the XLA oracle
-    (VERDICT r4 missing #2: the kernel previously had no VJP)."""
+def test_flash_grad_matches_oracle(b, s, t, nh, nkv, hd):
+    """jax.grad through the route == jax.grad through the oracle."""
     q = _rand((b, s, nh, hd), 10)
     k = _rand((b, t, nkv, hd), 11)
     v = _rand((b, t, nkv, hd), 12)
@@ -125,15 +187,13 @@ def test_flash_grad_matches_oracle(b, s, t, nh, nkv, hd, tq, tk):
     kv_len = jnp.full((b,), s, jnp.int32)
     w = _rand((b, s, nh, hd), 13)  # random cotangent direction
 
-    def loss_kernel(q, k, v):
-        out = flash_attention(q, k, v, q_start, kv_len, tq=tq, tk=tk,
-                              interpret=True)
-        return jnp.sum(out * w)
+    def loss_route(q, k, v):
+        return jnp.sum(_route(q, k, v, kv_len) * w)
 
     def loss_oracle(q, k, v):
         return jnp.sum(_oracle(q, k, v, q_start, kv_len) * w)
 
-    got = jax.grad(loss_kernel, argnums=(0, 1, 2))(q, k, v)
+    got = jax.grad(loss_route, argnums=(0, 1, 2))(q, k, v)
     want = jax.grad(loss_oracle, argnums=(0, 1, 2))(q, k, v)
     for g, wnt, name in zip(got, want, "qkv"):
         np.testing.assert_allclose(
@@ -143,25 +203,29 @@ def test_flash_grad_matches_oracle(b, s, t, nh, nkv, hd, tq, tk):
 
 
 def test_flash_grad_cached_offset():
-    """Backward with q_start > 0 and a KV prefix longer than the query
-    block (the prefill-at-offset geometry)."""
-    b, s, t, nh, nkv, hd = 2, 32, 96, 8, 2, 64
+    """Offset geometry (q_start > 0, the plain path's case) agrees with
+    the route, forward and gradient: queries at q_start..q_start+s-1 are
+    the last s rows of a from-zero causal attention over q_start+s
+    queries."""
+    b, s, t, nh, nkv, hd, q0 = 2, 32, 96, 8, 2, 64, 40
     q = _rand((b, s, nh, hd), 14)
     k = _rand((b, t, nkv, hd), 15)
     v = _rand((b, t, nkv, hd), 16)
-    q_start = jnp.asarray([16, 40], jnp.int32)
+    q_start = jnp.full((b,), q0, jnp.int32)
     kv_len = q_start + s
-
-    def loss_kernel(q, k, v):
-        return jnp.sum(
-            flash_attention(q, k, v, q_start, kv_len, tq=16, tk=32,
-                            interpret=True) ** 2
-        )
 
     def loss_oracle(q, k, v):
         return jnp.sum(_oracle(q, k, v, q_start, kv_len) ** 2)
 
-    got = jax.grad(loss_kernel, argnums=(0, 1, 2))(q, k, v)
+    def loss_route(q, k, v):
+        q_full = jnp.concatenate(
+            [jnp.zeros((b, q0, nh, hd), q.dtype), q], axis=1)
+        out = _route(q_full, k, v, kv_len)[:, q0:]
+        return jnp.sum(out ** 2)
+
+    np.testing.assert_allclose(float(loss_route(q, k, v)),
+                               float(loss_oracle(q, k, v)), rtol=1e-5)
+    got = jax.grad(loss_route, argnums=(0, 1, 2))(q, k, v)
     want = jax.grad(loss_oracle, argnums=(0, 1, 2))(q, k, v)
     for g, wnt, name in zip(got, want, "qkv"):
         np.testing.assert_allclose(
@@ -171,24 +235,24 @@ def test_flash_grad_cached_offset():
 
 
 @pytest.mark.slow
-def test_flash_grad_long_seq_llama():
-    """The exact failure VERDICT r4 weak #1 describes: jax.grad through
-    llama.forward with use_flash at S >= 1024 (auto-enable geometry).
-    Run at S=1024 with a tiny model; default tiles (tq=128, tk=1024)."""
+def test_flash_grad_long_seq_llama(route_on_cpu):
+    """jax.grad through llama.forward at S=1024 (the length where the
+    policy takes the route on the GPU) matches the plain attention."""
     cfg = llama.LlamaConfig.tiny(dtype=jnp.float32, max_seq_len=1024)
     params = llama.init_params(jax.random.PRNGKey(0), cfg)
     toks = jax.random.randint(jax.random.PRNGKey(1), (1, 1024), 0,
                               cfg.vocab_size)
 
-    def loss(params, use_flash):
-        logits, _ = llama.forward(params, toks, cfg, use_kernel=False,
-                                  use_flash=use_flash, interpret=True)
+    def loss(params):
+        logits, _ = llama.forward(params, toks, cfg)
         return jnp.mean(logits ** 2)
 
-    g_flash = jax.grad(loss)(params, True)
-    g_xla = jax.grad(loss)(params, False)
-    flat_f, _ = jax.tree_util.tree_flatten(g_flash)
-    flat_x, _ = jax.tree_util.tree_flatten(g_xla)
-    for gf, gx in zip(flat_f, flat_x):
-        np.testing.assert_allclose(np.asarray(gf), np.asarray(gx),
+    g_route = jax.grad(loss)(params)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ops, "attention_impl", lambda s, dtype, from_zero: None)
+        g_plain = jax.grad(loss)(params)
+    flat_r, _ = jax.tree_util.tree_flatten(g_route)
+    flat_p, _ = jax.tree_util.tree_flatten(g_plain)
+    for gr, gp in zip(flat_r, flat_p):
+        np.testing.assert_allclose(np.asarray(gr), np.asarray(gp),
                                    rtol=5e-3, atol=5e-4)

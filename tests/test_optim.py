@@ -84,80 +84,43 @@ def test_masked_for_lora():
 
 def test_profiling_roofline_math():
     """Roofline accounting: bytes/flops bookkeeping and bound selection."""
-    from quanta_tpu.profiling import _DEVICE_TABLE, matmul_roofline, device_spec
+    from quanta_tpu.profiling import DeviceSpec, device_spec, matmul_roofline
 
-    v5e = _DEVICE_TABLE["v5e"]
-    # decode shape, 4-bit weight: memory-bound (t_hbm > t_mxu)
+    dev = DeviceSpec("test", hbm_gbps=1000.0, bf16_tflops=500.0,
+                     int8_tops=1000.0)
+    # decode shape, 4-bit weight: memory-bound (t_hbm > t_compute)
     r4 = matmul_roofline(8, 2048, 2048, weight_bits=4, block_size=64,
-                         device=v5e)
+                         device=dev)
     assert r4.flops == 2 * 8 * 2048 * 2048
     expect_bytes = (8 * 2048 * 2 + 2048 * 2048 // 2
                     + (2048 // 64) * 2048 * 4 + 8 * 2048 * 2)
     assert r4.bytes == expect_bytes
-    assert r4.t_roofline_s == r4.t_hbm_s > r4.t_mxu_s
+    assert r4.t_roofline_s == r4.t_hbm_s > r4.t_compute_s
     # same shape bf16 moves ~3.4x the bytes
-    r16 = matmul_roofline(8, 2048, 2048, weight_bits=16, device=v5e)
+    r16 = matmul_roofline(8, 2048, 2048, weight_bits=16, device=dev)
     assert 3.0 < r16.bytes / r4.bytes < 4.0
     # huge-M prefill: compute-bound
-    rc = matmul_roofline(4096, 4096, 4096, weight_bits=16, device=v5e)
-    assert rc.t_roofline_s == rc.t_mxu_s
+    rc = matmul_roofline(4096, 4096, 4096, weight_bits=16, device=dev)
+    assert rc.t_roofline_s == rc.t_compute_s
     # pct is monotone: slower measurement -> lower pct
     assert r4.pct(r4.t_roofline_s) == 100.0
     assert r4.pct(2 * r4.t_roofline_s) == 50.0
-    assert device_spec().hbm_gbps > 0
+    assert device_spec(dev) is dev
 
 
 def test_profiling_measure_cpu():
-    """measure() returns a sane positive per-op time on CPU."""
-    from quanta_tpu.profiling import measure
+    """time_fn() returns a sane positive median time on CPU and waits for
+    the result (block_until_ready) on every call."""
+    from quanta_tpu.profiling import time_fn
 
     x = jnp.ones((256, 256), jnp.float32)
     w = jnp.ones((256, 256), jnp.float32)
-    t = measure(lambda a: a @ w, x, L0=4, L1=36, reps=2)
+    calls = []
+
+    def f(a):
+        calls.append(1)
+        return a @ w
+
+    t = time_fn(jax.jit(f), x, reps=3)
     assert 0 < t < 1.0
-
-
-def test_adam8bit_kernel_parity():
-    """Fused Pallas update (interpret) matches the XLA path bit-for-bit-ish."""
-    from quanta_tpu import optim as qoptim
-
-    params = {"w": jax.random.normal(jax.random.PRNGKey(0), (700,)),
-              "b": jax.random.normal(jax.random.PRNGKey(1), (64, 40))}
-    tx_x = qoptim.adam8bit(1e-2, use_kernel=False)
-    tx_k = qoptim.adam8bit(1e-2, use_kernel=True, interpret=True)
-    sx, sk = tx_x.init(params), tx_k.init(params)
-    for i in range(4):
-        g = jax.tree_util.tree_map(
-            lambda p: jax.random.normal(jax.random.PRNGKey(10 + i), p.shape),
-            params)
-        ux, sx = tx_x.update(g, sx, params)
-        uk, sk = tx_k.update(g, sk, params)
-        for a, b in zip(jax.tree_util.tree_leaves(ux),
-                        jax.tree_util.tree_leaves(uk)):
-            np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                       rtol=1e-5, atol=1e-7)
-        for a, b in zip(jax.tree_util.tree_leaves(sx.qstate),
-                        jax.tree_util.tree_leaves(sk.qstate)):
-            np.testing.assert_allclose(
-                np.asarray(a, np.float32), np.asarray(b, np.float32),
-                rtol=1e-5, atol=1e-6)
-
-
-def test_adam8bit_kernel_converges():
-    """Quadratic bowl converges through the fused kernel path."""
-    from quanta_tpu import optim as qoptim
-
-    target = jnp.linspace(-2, 2, 512)
-    w = jnp.zeros((512,))
-    tx = qoptim.adam8bit(5e-2, use_kernel=True, interpret=True)
-    state = tx.init(w)
-
-    @jax.jit
-    def step(w, state):
-        g = jax.grad(lambda w: jnp.mean((w - target) ** 2))(w)
-        upd, state = tx.update(g, state, w)
-        return w + upd, state
-
-    for _ in range(200):
-        w, state = step(w, state)
-    assert float(jnp.mean((w - target) ** 2)) < 1e-2
+    assert len(calls) == 1  # traced once: warm-up compiled, reps reuse it

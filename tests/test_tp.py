@@ -175,8 +175,8 @@ def test_tp_cached_decode_equivalence(setup):
 @pytest.mark.slow
 def test_tp_forward_kernel_under_shard_map(setup):
     """The fused dequant-matmul kernel composes with manual TP: the Pallas
-    kernel (interpret mode on CPU) runs inside shard_map and matches the
-    XLA-path TP forward (VERDICT r2 missing #8: kernel x sharding)."""
+    kernel (Triton route, interpret mode on CPU) runs inside shard_map and
+    matches the plain-path TP forward."""
     params, toks = setup
     mesh = make_mesh(data=2, model=2)
     tp_params = tpmod.tp_llama_params(params, CFG, 2, fmt="nf4", block_size=64)
@@ -191,8 +191,9 @@ def test_tp_forward_kernel_under_shard_map(setup):
 
 def test_row_parallel_chunk_width_guard():
     """N=128 row-parallel shard with the kernel path: 2-way chunking
-    would produce 64-wide chunks (< the kernel's 128 N-tile) — the guard
-    must fall back instead of crashing (VERDICT r3 weak #4)."""
+    gives 64-wide chunks, which the kernel takes (its N tile divides
+    them); chunk widths it cannot take fall back to fewer chunks instead
+    of crashing."""
     from functools import partial
 
     from jax.sharding import PartitionSpec as P
